@@ -1,8 +1,9 @@
-// Step math shared by the entry-skip prepass and the fused march.
+// Step math shared by the entry-skip prepass, the fused march and the
+// guided collect march (the last two through march_step.cuh).
 //
-// Both kernels must advance a ray's t bit for bit alike, and alike to the
-// plain PyTorch versions (ops/skip_prepass.py, ops/accel.py) and the JAX
-// reference.  They are built with -fmad=false, so every f32 op below
+// They must advance a ray's t bit for bit alike, and alike to the plain
+// PyTorch versions (ops/skip_prepass.py, ops/accel.py, ops/guided.py) and
+// the JAX reference.  They are built with -fmad=false, so every f32 op below
 // rounds on its own, except the position cen + t * d, which the JAX
 // reference computes as one fused multiply-add and which is therefore an
 // explicit __fmaf_rn here (ops/fp.py:fma_f32 is its plain counterpart).

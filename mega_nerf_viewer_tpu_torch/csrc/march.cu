@@ -28,24 +28,15 @@
 //
 // Design, simple first: no shared memory, no async copies; rays that are
 // neighbours in the frame order are neighbours in a warp, so their row
-// reads fall on nearby cells.  Built with -fmad=false (see common.cuh).
-#include "common.cuh"
+// reads fall on nearby cells.  The step itself is march_step
+// (march_step.cuh), which the guided collect march shares.  Built with
+// -fmad=false (see common.cuh).
+#include "march_step.cuh"
 
 namespace mnv {
 
-__device__ __forceinline__ float half_bits_to_float(int bits) {
-  return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
-}
-
-__device__ __forceinline__ long long clampll(long long i, long long n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
 __global__ void __launch_bounds__(kBlock)
-march_kernel(const int* __restrict__ child, long long n_child,
-             const __half* __restrict__ data, long long n_nodes, int D,
-             const int2* __restrict__ rows, long long n_cells, int level,
-             int deep_levels, const float* __restrict__ cen,
+march_kernel(LeafMapTree tr, const float* __restrict__ cen,
              const float* __restrict__ d, const float* __restrict__ invdir,
              const float* __restrict__ delta_scale,
              const float* __restrict__ tmin, const float* __restrict__ tmax,
@@ -65,8 +56,6 @@ march_kernel(const int* __restrict__ child, long long n_child,
   const float tm = tmax[r];
   const bool ray_miss = miss[r];
   const float* __restrict__ rb = basis + (long long)r * B;
-  const int G = 1 << level;
-  const float Gf = (float)G;
 
   float t = tmin[r];
   float T = 1.0f;
@@ -76,45 +65,15 @@ march_kernel(const int* __restrict__ child, long long n_child,
   bool active = !ray_miss && t < tm;
   while (active) {
     ++ns;
-    const float px = clip_pos(cx, t, dx);
-    const float py = clip_pos(cy, t, dy);
-    const float pz = clip_pos(cz, t, dz);
-
-    // leaf lookup (accel.leaf_lookup)
-    const long long lin = ((long long)((int)floorf(px * Gf)) * G +
-                           (int)floorf(py * Gf)) * G + (int)floorf(pz * Gf);
-    const int2 row = rows[clampll(lin, n_cells)];
-    int node = row.x;
-    int depth = row.y & 31;
-    float sigma = half_bits_to_float((row.y >> 16) & 0xFFFF);
-    if (deep_levels > 0 && (row.y & 32)) {
-      float ux = px * Gf, uy = py * Gf, uz = pz * Gf;
-      float fx = ux - floorf(ux), fy = uy - floorf(uy), fz = uz - floorf(uz);
-      int chunk = node, cidx = 0;
-      for (int k = 0; k <= deep_levels; ++k) {
-        const float u2x = fx * 2.0f, u2y = fy * 2.0f, u2z = fz * 2.0f;
-        const float gx = floorf(u2x), gy = floorf(u2y), gz = floorf(u2z);
-        const int idx2 = (int)(gx * 4.0f + gy * 2.0f + gz);
-        const int skip = child[clampll((long long)chunk * 8 + idx2, n_child)];
-        fx = u2x - gx;
-        fy = u2y - gy;
-        fz = u2z - gz;
-        cidx = idx2;
-        if (skip == 0) break;
-        chunk += skip;
-        ++depth;
-      }
-      node = chunk * 8 + cidx;
-      sigma = __half2float(data[clampll(node, n_nodes) * D + (D - 1)]);
-    }
-
-    const float cube = pow2f(depth);
-    const float delta_t = leaf_exit(px, py, pz, cube, ix, iy, iz) + step_size;
+    const MarchStep st =
+        march_step(tr, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
+    const float sigma = st.sigma;
+    const float delta_t = st.delta_t;
     if (sigma > sigma_thresh) {
       const float att = expf(-delta_t * ds * sigma);
       const float weight = T * (1.0f - att);
       if (nd < max_dense) {
-        const __half* leaf = data + clampll(node, n_nodes) * D;
+        const __half* leaf = tr.data + clampll(st.node, tr.n_nodes) * tr.D;
         float c0, c1, c2;
         if (use_sh) {
           float l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
@@ -174,12 +133,13 @@ extern "C" int march_launch(
     float sigma_thresh, float stop_thresh, int max_dense, int R, void* out,
     void* nsteps, void* nrec, void* overflow, void* stream) {
   const int grid = (R + mnv::kBlock - 1) / mnv::kBlock;
-  mnv::march_kernel<<<grid, mnv::kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const mnv::LeafMapTree tr{
       static_cast<const int*>(child), n_child,
       static_cast<const __half*>(data), n_nodes, D,
-      static_cast<const int2*>(rows), n_cells, level, deep_levels,
-      static_cast<const float*>(cen), static_cast<const float*>(d),
+      static_cast<const int2*>(rows), n_cells, level, deep_levels};
+  mnv::march_kernel<<<grid, mnv::kBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      tr, static_cast<const float*>(cen), static_cast<const float*>(d),
       static_cast<const float*>(invdir),
       static_cast<const float*>(delta_scale),
       static_cast<const float*>(tmin), static_cast<const float*>(tmax),

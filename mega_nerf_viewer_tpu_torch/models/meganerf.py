@@ -1,0 +1,416 @@
+"""Mega-NeRF MLP container: batched-matmul inference + TorchScript loading.
+
+Counterpart of ``mega_nerf_viewer_tpu/models/meganerf.py``; analogue of
+the reference's LibTorch model layer (``src/renderer/cuda_renderer.cpp:
+518-543`` load_model, ``:165-203`` query_submodules).  The reference keeps
+a TorchScript module per spatial cluster; here the submodules' Linear
+stacks are converted once into stacked weights with one leading cluster
+axis (:class:`MLPParams`) and inference is batched matrix products.
+The products are plain PyTorch (``torch.bmm``), as the JAX package leaves
+them to XLA outside any Pallas kernel; they run in full f32 (TF32 off,
+see :func:`_f32_matmul`) because the reference is f32.
+
+Container contract (reference ``cuda_renderer.cpp:518-543``):
+  * attrs ``grid_dim`` (int[2]), ``min_position`` / ``max_position``
+    (float[3]), ``centroids`` (count == number of submodules),
+    ``need_viewdir`` (bool), ``need_appearance_embedding`` (bool)
+  * submodules ``sub_module_<i>``: input ``[n, 3(+3)(+1)]`` =
+    [xyz, (viewdir), (appearance)], second arg ``False``; output
+    ``[n, data_dim + 1]``.
+
+Cluster id for a point is a 2-D cell over (y, z):
+``g1 * grid_dim[1] + g2`` (reference ``rt_core.cuh:541-549``).
+
+A container whose graph does not convert raises ``NotImplementedError``
+(the JAX package falls back to eager TorchScript there; that fallback is
+not ported yet).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+
+# batches at or above this size take the chunked route (meganerf.py:236)
+CHUNKED_MIN = 1 << 16
+CHUNK = 1 << 13
+
+
+class MLPParams(nn.Module):
+    """Stacked per-cluster MLP weights.
+
+    ``weights[l]: f32[n_clusters, in_l, out_l]``, ``biases[l]:
+    f32[n_clusters, out_l]`` (buffers ``w<l>``, ``b<l>``).  ``skips`` marks
+    layers whose input is ``concat([h, x0])`` (NeRF-style reinjection).
+    """
+
+    def __init__(self, weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor], skips=()):
+        super().__init__()
+        if len(weights) != len(biases) or not weights:
+            raise ValueError("need one bias per weight, at least one layer")
+        self.n_layers = len(weights)
+        for l, (w, b) in enumerate(zip(weights, biases)):
+            self.register_buffer(f"w{l}", w.to(torch.float32).contiguous())
+            self.register_buffer(f"b{l}", b.to(torch.float32).contiguous())
+        self.skips = tuple(int(s) for s in skips)
+
+    @property
+    def weights(self) -> list:
+        return [getattr(self, f"w{l}") for l in range(self.n_layers)]
+
+    @property
+    def biases(self) -> list:
+        return [getattr(self, f"b{l}") for l in range(self.n_layers)]
+
+    @property
+    def n_clusters(self) -> int:
+        return self.w0.shape[0]
+
+    @property
+    def input_dim(self) -> int:
+        return self.w0.shape[1]
+
+    @property
+    def output_dim(self) -> int:
+        return self.weights[-1].shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.w0.device
+
+
+def params_from_numpy(weights, biases, skips=(), device=None) -> MLPParams:
+    """The port's :class:`MLPParams` from host arrays, e.g. the JAX
+    model's: ``params_from_numpy([np.asarray(w) for w in p.weights],
+    [np.asarray(b) for b in p.biases], p.skips)``."""
+    device = resolve_device(device)
+    return MLPParams(
+        [torch.from_numpy(np.asarray(w, np.float32)).to(device)
+         for w in weights],
+        [torch.from_numpy(np.asarray(b, np.float32)).to(device)
+         for b in biases], skips)
+
+
+@contextlib.contextmanager
+def _f32_matmul():
+    """Full-f32 matrix products for the block (TF32 would move outputs by
+    about 1e-3); the caller's setting is restored after."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def mlp_forward(params: MLPParams, cluster: int,
+                x: torch.Tensor) -> torch.Tensor:
+    """Forward ``x [n, in]`` through the MLP of one ``cluster``."""
+    h = x
+    L = params.n_layers
+    with _f32_matmul():
+        for l in range(L):
+            if l in params.skips:
+                h = torch.cat([h, x], dim=-1)
+            h = h @ params.weights[l][cluster] + params.biases[l][cluster]
+            if l < L - 1:
+                h = torch.relu(h)
+    return h
+
+
+def mlp_forward_all(params: MLPParams, cluster_ids: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Every cluster's MLP on every sample, then a select by
+    ``cluster_ids`` (the small-batch route: C x the products, no sort)."""
+    C = params.n_clusters
+    x0 = x.unsqueeze(0).expand(C, -1, -1)
+    h = x0
+    L = params.n_layers
+    with _f32_matmul():
+        for l in range(L):
+            if l in params.skips:
+                h = torch.cat([h, x0], dim=-1)
+            h = torch.bmm(h, params.weights[l]) + params.biases[l][:, None]
+            if l < L - 1:
+                h = torch.relu(h)
+    n = x.shape[0]
+    return h[cluster_ids.long(), torch.arange(n, device=x.device)]
+
+
+def mlp_forward_chunked(params: MLPParams, x_al: torch.Tensor,
+                        chunk_cids: torch.Tensor,
+                        chunk: int) -> torch.Tensor:
+    """Cluster-pure chunked batched MLP forward (``meganerf.py:142-179``).
+
+    ``x_al`` f32 [nb*chunk, in]: cluster-sorted samples, each cluster's
+    segment padded to a ``chunk`` multiple, so every chunk is one
+    cluster's (``chunk_cids`` [nb]).  One ``torch.bmm`` per layer with
+    per-chunk gathered weights.  Pad rows hold garbage."""
+    nb = x_al.shape[0] // chunk
+    h = x_al.reshape(nb, chunk, x_al.shape[-1])
+    x0 = h
+    cids = chunk_cids.long()
+    L = params.n_layers
+    with _f32_matmul():
+        for l in range(L):
+            if l in params.skips:
+                h = torch.cat([h, x0], dim=-1)
+            h = torch.bmm(h, params.weights[l][cids]) \
+                + params.biases[l][cids][:, None, :]
+            if l < L - 1:
+                h = torch.relu(h)
+    return h.reshape(nb * chunk, -1)
+
+
+def _query_chunked(params: MLPParams, cluster_ids: torch.Tensor,
+                   x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Sort-once chunked dispatch (``meganerf.py:182-228``): samples in
+    any order -> outputs in the same order.  The aligned buffer has the
+    static bound ``(ceil(n/chunk) + C) * chunk`` rows, so nothing here
+    waits on the card."""
+    C = params.n_clusters
+    n = x.shape[0]
+    dev = x.device
+    ids = cluster_ids.long().clamp(0, C - 1)
+    perm = torch.sort(ids, stable=True).indices
+    sorted_x = x[perm]
+    counts = torch.zeros(C, dtype=torch.int64, device=dev).index_add_(
+        0, ids, torch.ones_like(ids))
+    cum = torch.cumsum(counts, 0)
+    seg_start = cum - counts
+    cnt_al = torch.div(counts + chunk - 1, chunk,
+                       rounding_mode="floor") * chunk
+    al_start = torch.cumsum(cnt_al, 0) - cnt_al
+    P_al = (-(-n // chunk) + C) * chunk
+    s = torch.arange(P_al, device=dev)
+    # cluster of each aligned slot; the tail slack clips to the last one
+    c_s = (torch.searchsorted(al_start, s, right=True) - 1).clamp(0, C - 1)
+    off = s - al_start[c_s]
+    k = seg_start[c_s] + torch.minimum(off, (counts[c_s] - 1).clamp_min(0))
+    x_al = sorted_x[k.clamp(0, n - 1)]
+    chunk_cids = c_s.reshape(-1, chunk)[:, 0]
+    out_al = mlp_forward_chunked(params, x_al, chunk_cids, chunk)
+    # aligned slot of sorted rank r, written back to the caller's order
+    r = torch.arange(n, device=dev)
+    c_r = (torch.searchsorted(seg_start, r, right=True) - 1).clamp(0, C - 1)
+    s_r = al_start[c_r] + (r - seg_start[c_r])
+    out = torch.empty((n, out_al.shape[1]), dtype=out_al.dtype, device=dev)
+    out[perm] = out_al[s_r]
+    return out
+
+
+def query_grouped(params: MLPParams, cluster_ids: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Shape-adaptive grouped dispatch: the chunked route for 2^16 samples
+    or more, the all-clusters select below (``meganerf.py:231-240``)."""
+    if x.shape[0] >= CHUNKED_MIN:
+        return _query_chunked(params, cluster_ids, x, CHUNK)
+    ids = cluster_ids.long().clamp(0, params.n_clusters - 1)
+    return mlp_forward_all(params, ids, x)
+
+
+def cluster_ids_from_yz(y, z, grid_dim, min_position, pos_range):
+    """The spatial cluster-id grid over world (y, z) in f32
+    (``rt_core.cuh:541-549``): one home for the clip/scale/linearize
+    policy, shared by the guided reconstruction and the model.  The
+    grid arguments may be host arrays or tensors on ``y``'s device."""
+    dev = y.device
+    gd = torch.as_tensor(grid_dim, device=dev).to(torch.int32)
+    gdf = gd.to(torch.float32)
+    mp = torch.as_tensor(min_position, device=dev).to(torch.float32)
+    rg = torch.as_tensor(pos_range, device=dev).to(torch.float32)
+    g1 = torch.minimum(torch.maximum((y - mp[1]) / rg[1] * gdf[0],
+                                     gdf.new_zeros(())),
+                       gdf[0] - 1.0).to(torch.int32)
+    g2 = torch.minimum(torch.maximum((z - mp[2]) / rg[2] * gdf[1],
+                                     gdf.new_zeros(())),
+                       gdf[1] - 1.0).to(torch.int32)
+    return g1 * gd[1] + g2
+
+
+# ----------------------------------------------------------------------
+class MegaNeRFModel:
+    def __init__(self, params: MLPParams, grid_dim, min_position,
+                 max_position, need_viewdir: bool,
+                 need_appearance_embedding: bool):
+        self.params = params
+        self.grid_dim = np.asarray(grid_dim, np.int32).reshape(2)
+        self.min_position = np.asarray(
+            min_position, np.float32).reshape(-1)[:3]
+        self.max_position = np.asarray(
+            max_position, np.float32).reshape(-1)[:3]
+        self.range = self.max_position - self.min_position
+        self.need_viewdir = bool(need_viewdir)
+        self.need_appearance_embedding = bool(need_appearance_embedding)
+
+    @property
+    def n_clusters(self) -> int:
+        return self.params.n_clusters
+
+    @property
+    def output_dim(self) -> int:
+        return self.params.output_dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    # ------------------------------------------------------------------
+    def query_device(self, cluster_ids, samples) -> torch.Tensor:
+        """Grouped dispatch on the model's device (:func:`query_grouped`).
+        ``cluster_ids`` [n] int, ``samples`` [n, in_dim] -> f32
+        [n, out_dim] in the input order."""
+        dev = self.device
+        return query_grouped(
+            self.params, torch.as_tensor(cluster_ids, device=dev).reshape(-1),
+            torch.as_tensor(samples, dtype=torch.float32, device=dev))
+
+    def cluster_ids_device(self, points_yz: torch.Tensor) -> torch.Tensor:
+        """Spatial cluster id from world (y, z), on the tensor's device."""
+        return cluster_ids_from_yz(points_yz[..., 0], points_yz[..., 1],
+                                   self.grid_dim, self.min_position,
+                                   self.range)
+
+    def cluster_ids_for_points(self, points_yz: np.ndarray) -> np.ndarray:
+        """Spatial cluster id from world (y, z), on the host."""
+        g1 = np.clip((points_yz[..., 0] - self.min_position[1])
+                     / self.range[1] * self.grid_dim[0],
+                     0, self.grid_dim[0] - 1.0).astype(np.int32)
+        g2 = np.clip((points_yz[..., 1] - self.min_position[2])
+                     / self.range[2] * self.grid_dim[1],
+                     0, self.grid_dim[1] - 1.0).astype(np.int32)
+        return (g1 * self.grid_dim[1] + g2).astype(np.int32)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def synthetic(data_dim: int = 4, n_clusters: int = 4,
+                  hidden: int = 32, n_layers: int = 3,
+                  need_viewdir: bool = False,
+                  need_appearance_embedding: bool = False,
+                  grid_dim=(2, 2), min_position=(-1.0, -1.0, -1.0),
+                  max_position=(1.0, 1.0, 1.0),
+                  seed: int = 0, device=None) -> "MegaNeRFModel":
+        """Random-weight model; the weights equal the JAX package's
+        ``synthetic`` with the same arguments (same draws, same order)."""
+        rng = np.random.RandomState(seed)
+        in_dim = 3 + (3 if need_viewdir else 0) \
+            + (1 if need_appearance_embedding else 0)
+        dims = [in_dim] + [hidden] * (n_layers - 1) + [data_dim + 1]
+        weights, biases = [], []
+        for l in range(len(dims) - 1):
+            weights.append(rng.randn(n_clusters, dims[l], dims[l + 1])
+                           .astype(np.float32) / np.sqrt(dims[l]))
+            biases.append(rng.randn(n_clusters, dims[l + 1])
+                          .astype(np.float32) * 0.1)
+        if int(np.prod(grid_dim)) != n_clusters:
+            raise ValueError(f"grid_dim {grid_dim} does not hold "
+                             f"{n_clusters} clusters")
+        return model_from_numpy(weights, biases, (), grid_dim, min_position,
+                                max_position, need_viewdir,
+                                need_appearance_embedding, device=device)
+
+    @staticmethod
+    def from_torchscript(container_path: str, verify: bool = True,
+                         device=None) -> "MegaNeRFModel":
+        """Load and convert a TorchScript Mega-NeRF container (reference
+        ``Impl::load_model``, cuda_renderer.cpp:518-543).  Raises
+        ``NotImplementedError`` when the submodules are not a Linear/ReLU
+        stack (with skips) that replays within 1e-4 of their forward."""
+        device = resolve_device(device)
+        container = torch.jit.load(str(container_path), map_location="cpu")
+        n = int(container.centroids.shape[0])
+        need_viewdir = bool(container.need_viewdir)
+        need_appearance = bool(container.need_appearance_embedding)
+        modules = []
+        for i in range(n):
+            m = getattr(container, f"sub_module_{i}")
+            m.eval()
+            modules.append(m)
+        in_dim = 3 + (3 if need_viewdir else 0) + (1 if need_appearance else 0)
+        params = _convert_modules(modules, in_dim, verify=verify)
+        if params is None:
+            raise NotImplementedError(
+                f"{container_path}: the submodules do not convert to a "
+                f"Linear/ReLU stack; the eager TorchScript fallback is not "
+                f"ported yet")
+        return MegaNeRFModel(params.to(device),
+                             container.grid_dim.numpy(),
+                             container.min_position.numpy(),
+                             container.max_position.numpy(),
+                             need_viewdir, need_appearance)
+
+
+def model_from_numpy(weights, biases, skips, grid_dim, min_position,
+                     max_position, need_viewdir: bool,
+                     need_appearance_embedding: bool,
+                     device=None) -> MegaNeRFModel:
+    """A whole :class:`MegaNeRFModel` from host arrays and the container
+    attributes (e.g. the JAX model's ``params``, ``grid_dim``,
+    ``min_position``, ``max_position`` and flags)."""
+    return MegaNeRFModel(params_from_numpy(weights, biases, skips, device),
+                         grid_dim, min_position, max_position,
+                         need_viewdir, need_appearance_embedding)
+
+
+def _convert_modules(modules, in_dim: int,
+                     verify: bool = True) -> Optional[MLPParams]:
+    """Extract the Linear stacks of TorchScript modules into
+    :class:`MLPParams` (``meganerf.py:459-532``), or None when they do
+    not convert.  A layer whose input width exceeds the running width by
+    exactly ``in_dim`` is a skip reinjection of the raw input."""
+    all_layers = []
+    skips_per_module = []
+    for m in modules:
+        named = dict(m.named_parameters())
+        layers = []
+        for name, p in m.named_parameters():
+            if name.endswith("weight") and p.dim() == 2:
+                b = named.get(name[:-len("weight")] + "bias")
+                layers.append((p.detach().cpu().numpy(),
+                               None if b is None
+                               else b.detach().cpu().numpy()))
+        skips = []
+        h = in_dim
+        for l, (w, _) in enumerate(layers):
+            out_d, in_d = w.shape
+            if in_d == h + in_dim:
+                skips.append(l)
+            elif in_d != h:
+                return None
+            h = out_d
+        if not layers:
+            return None
+        all_layers.append(layers)
+        skips_per_module.append(tuple(skips))
+
+    shapes = [tuple(w.shape for w, _ in ls) for ls in all_layers]
+    if len(set(shapes)) != 1 or len(set(skips_per_module)) != 1:
+        return None
+    weights, biases = [], []
+    for l in range(len(all_layers[0])):
+        weights.append(np.stack([ls[l][0].T for ls in all_layers])
+                       .astype(np.float32))
+        biases.append(np.stack([
+            ls[l][1] if ls[l][1] is not None
+            else np.zeros(ls[l][0].shape[0], np.float32)
+            for ls in all_layers]).astype(np.float32))
+    params = params_from_numpy(weights, biases, skips_per_module[0],
+                               device="cpu")
+    if verify:
+        x = torch.from_numpy(
+            np.random.RandomState(0).randn(8, in_dim).astype(np.float32))
+        for c, m in enumerate(modules):
+            with torch.inference_mode():
+                want = m(x, False)
+            got = mlp_forward(params, c, x)
+            if want.shape != got.shape or not torch.allclose(
+                    want, got, rtol=1e-4, atol=1e-4):
+                return None
+    return params

@@ -227,7 +227,8 @@ class MarchInputs(NamedTuple):
     tmin: torch.Tensor         # [R]
     tmax: torch.Tensor         # [R]
     miss: torch.Tensor         # [R] bool, the ray misses the bbox
-    basis: torch.Tensor        # [R, basis_dim] masked SH basis ([R, 1] if none)
+    # [R, basis_dim] masked SH basis ([R, 1] if none; None for the collect)
+    basis: Optional[torch.Tensor]
     step_size: float
     sigma_thresh: float
     stop_thresh: float
@@ -235,6 +236,33 @@ class MarchInputs(NamedTuple):
 
 
 _PER_RAY = ("d", "invdir", "delta_scale", "tmin", "tmax", "miss", "basis")
+
+
+def slice_rays(m: MarchInputs, sl: slice) -> MarchInputs:
+    """``m`` with its per-ray fields cut to the rays ``sl``."""
+    return m._replace(**{k: getattr(m, k)[sl] for k in _PER_RAY
+                         if getattr(m, k) is not None})
+
+
+def ray_setup(tree: N3Tree, dirs: torch.Tensor, cen_world, render_bbox,
+              tmax_bg: Optional[torch.Tensor] = None):
+    """World rays -> tree-space (cen [3], d, invdir [R, 3], delta_scale,
+    tmin, tmax [R], miss [R] bool), the setup shared by the render march
+    (``accel.py:410-420``) and the guided collect (``guided.py:382-388``,
+    which has no ``tmax_bg`` clamp: pass None)."""
+    dev = dirs.device
+    cen_world = torch.as_tensor(cen_world, dtype=torch.float32, device=dev)
+    cen = fma_f32(tree.scale, cen_world, tree.offset)
+    d = dirs * tree.scale[None, :]
+    delta_scale = rsqrt_f32(sq_norm(d))
+    d = d * delta_scale[:, None]
+    invdir = 1.0 / (d + _f32(1e-9))
+    tmin, tmax = _dda_world_batch(cen, invdir, render_bbox)
+    if tmax_bg is not None:
+        tmax = torch.minimum(tmax, tmax_bg / delta_scale)
+    miss = (tmax < 0) | (tmin > tmax)
+    return (cen, d.contiguous(), invdir.contiguous(), delta_scale, tmin,
+            tmax, miss)
 
 
 def march_inputs(tree: N3Tree, dirs: torch.Tensor, vdirs: torch.Tensor,
@@ -258,27 +286,17 @@ def march_inputs(tree: N3Tree, dirs: torch.Tensor, vdirs: torch.Tensor,
         knobs = (opt.step_size, opt.sigma_thresh, opt.stop_thresh)
         render_bbox = opt.render_bbox
     step_size, sigma_thresh, stop_thresh = map(_f32, knobs)
-
-    cen_world = torch.as_tensor(cen_world, dtype=torch.float32, device=dev)
-    cen = fma_f32(tree.scale, cen_world, tree.offset)
-    d = dirs * tree.scale[None, :]
-    delta_scale = rsqrt_f32(sq_norm(d))
-    d = d * delta_scale[:, None]
     if tmax_bg is None:
         tmax_bg = torch.full((R,), 1e9, dtype=torch.float32, device=dev)
-    tmax_bg = tmax_bg / delta_scale
-    invdir = 1.0 / (d + _f32(1e-9))
-    tmin, tmax = _dda_world_batch(cen, invdir, render_bbox)
-    tmax = torch.minimum(tmax, tmax_bg)
-    miss = (tmax < 0) | (tmin > tmax)
+    cen, d, invdir, delta_scale, tmin, tmax, miss = ray_setup(
+        tree, dirs, cen_world, render_bbox, tmax_bg)
     if use_sh:
         basis = masked_sh_basis(basis_dim, vdirs, opt.basis_minmax[0],
                                 opt.basis_minmax[1]).contiguous()
     else:
         basis = torch.zeros((R, 1), dtype=torch.float32, device=dev)
-    return MarchInputs(cen, d.contiguous(), invdir.contiguous(),
-                       delta_scale, tmin, tmax, miss, basis, step_size,
-                       sigma_thresh, stop_thresh, use_sh)
+    return MarchInputs(cen, d, invdir, delta_scale, tmin, tmax, miss,
+                       basis, step_size, sigma_thresh, stop_thresh, use_sh)
 
 
 def _prepass(m: MarchInputs, skip_table: Optional[torch.Tensor]):
@@ -468,8 +486,8 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
             ovs.append(torch.zeros((), dtype=torch.int32, device=dev))
             continue
         sl = slice(off, off + c_chunks * chunk_size)
-        ms = m._replace(**{k: getattr(m, k)[sl] for k in _PER_RAY})
-        out, overflow, st, nr = fused_march(tree, leaf_map, ms, md,
+        out, overflow, st, nr = fused_march(tree, leaf_map,
+                                            slice_rays(m, sl), md,
                                             chunk_size)
         outs.append(out)
         ovs.append(overflow)
@@ -554,6 +572,18 @@ def order_from_hints(steps, nrec, skips=None, group: int = 1):
 # escalated by the caller (0 -> 1, then doubling) and re-rendered.
 DEFAULT_SEGMENTS = ((0.515, 0), (0.35, 1), (0.065, 2),
                     (0.055, 4), (0.015, 8))
+
+
+def class_ladder(top: int) -> tuple:
+    """The power-of-two budget ladder (0, 1, 2, 4, ..., top) that
+    CDF-derived segment tuples draw their budgets from."""
+    classes = [0]
+    c = 1
+    while c < top:
+        classes.append(c)
+        c *= 2
+    classes.append(int(top))
+    return tuple(classes)
 
 
 def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,

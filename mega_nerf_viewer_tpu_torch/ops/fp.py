@@ -36,7 +36,8 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     e = (p - (s - bv)) + (c64 - bv)
     r = s.float()
     rd = r.double()
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=r.device)
+    # a fill, not a host-to-device copy: a copy would wait for the card
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=r.device)
     nb = torch.nextafter(r, torch.where(s > rd, inf, -inf))
     nbd = nb.double()
     tie = (s != rd) & (2.0 * s == rd + nbd)

@@ -18,7 +18,10 @@ IMPORT_RE = re.compile(
 def test_import_leaves_out_jax():
     code = ("import sys, mega_nerf_viewer_tpu_torch, "
             "mega_nerf_viewer_tpu_torch.kernels, "
-            "mega_nerf_viewer_tpu_torch.ops.accel\n"
+            "mega_nerf_viewer_tpu_torch.ops.accel, "
+            "mega_nerf_viewer_tpu_torch.ops.guided, "
+            "mega_nerf_viewer_tpu_torch.ops.compact_composite, "
+            "mega_nerf_viewer_tpu_torch.models\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
             "or m.startswith('mega_nerf_viewer_tpu.')]\n"
@@ -42,6 +45,10 @@ def _sources():
 def test_no_source_imports_jax():
     srcs = _sources()
     assert len(srcs) >= 10
+    names = {os.path.relpath(p, PORT) for p in srcs}
+    assert {os.path.join("ops", "guided.py"),
+            os.path.join("ops", "compact_composite.py"),
+            os.path.join("models", "meganerf.py")} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -69,10 +76,13 @@ def _entry_points():
         lambda: P.N3Tree.open(fixture),
         lambda: accel.block_permutation(8, 8, 4),
         lambda: device_tuning(),
+        lambda: P.MegaNeRFModel.synthetic(),
+        lambda: P.MegaNeRFModel.from_torchscript(
+            os.path.join(REPO, "tests", "fixtures", "meganerf_8x64.pt")),
     ]
 
 
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("i", range(7))
 def test_entry_point_without_device_needs_a_card(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -88,7 +98,27 @@ def test_kernels_refuse_cpu_tensors():
         kernels.skip_prepass(torch.zeros((80, 128), dtype=torch.int32),
                              torch.zeros(3), d, d, r, r,
                              torch.ones(4, dtype=torch.bool), 1e-4)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.compact_composite(torch.zeros((8, 5)), torch.zeros(8),
+                                  torch.zeros(4, dtype=torch.int32),
+                                  torch.zeros(4, dtype=torch.int32),
+                                  torch.zeros((8, 3)), 1, True, 0, 24)
     assert kernels.LAUNCHES == before     # a refused call launched nothing
+
+
+def test_collect_kernel_refuses_cpu_tensors():
+    import mega_nerf_viewer_tpu_torch as P
+    from mega_nerf_viewer_tpu_torch import kernels
+    tree = P.sphere_tree(depth=2, device="cpu")
+    lm = P.build_leaf_map(tree)
+    d = torch.zeros((4, 3))
+    r = torch.zeros(4)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.collect(tree, lm, torch.zeros(3), d, d, r, r, r,
+                        torch.zeros(4, dtype=torch.bool), 8, 1e-4, 1e-2,
+                        1e-2)
+    assert kernels.LAUNCHES == before
 
 
 def test_kernel_library_path_is_in_checkout():

@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here needs a CUDA device and skips without one.
 
-Tolerances: the prepass is bit-equal; the march's integers are equal
-and its rgba within 1e-6 (the kernel sums shaded samples in order, the
-plain version reduces the record buffer; both round each op alike).
+Tolerances: the prepass and the collect march are bit-equal (t compared
+as int32, integers equal); the march's integers are equal and its rgba
+within 1e-6 (the kernel sums shaded samples in order, the plain version
+reduces the record buffer; both round each op alike); the compact
+compositor within 1e-6 (a running product along the ray against a
+cumprod and a masked sum).
 """
 
 import numpy as np
@@ -88,3 +91,124 @@ def test_frame_on_card_matches_cpu(cuda):
     same = (sc == sg.cpu()) & (nc == ng.cpu())
     assert int((~same).sum()) <= 4
     assert float((ic - ig.cpu()).reshape(-1, 4)[same].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("S", [16, 2, 0])
+@pytest.mark.parametrize("depth,level", [(5, None), (7, 4)])
+def test_collect_kernel_bit_equal(cuda, S, depth, level):
+    """Kernel C against its plain version: t bit-equal, integers equal."""
+    from mega_nerf_viewer_tpu_torch.ops import guided
+    tree, lm, table, m = _scene(cuda, depth, level)
+    t0, _ = kernels.skip_prepass(table, m.cen, m.d, m.invdir, m.tmin,
+                                 m.tmax, ~m.miss, m.step_size)
+    args = (tree, lm, m.cen, m.d, m.invdir, m.delta_scale, t0, m.tmax,
+            m.miss, S, m.step_size, m.sigma_thresh, m.stop_thresh)
+    before = kernels.LAUNCHES["collect"]
+    ok = kernels.collect(*args)
+    assert kernels.LAUNCHES["collect"] == before + 1
+    op = guided.collect_t_fast_reference(*args)
+    assert torch.equal(ok[0].view(torch.int32), op[0].view(torch.int32))
+    for a, b in zip(ok[1:], op[1:]):
+        assert torch.equal(a, b)
+    assert int(ok[1].sum()) > 0 or S == 0
+    if S == 2:
+        assert int(ok[3]) > 0
+
+
+def _compact_cache(cuda, basis_dim, R=3000, opaque=False):
+    rng = np.random.RandomState(basis_dim)
+    out_dim = 3 * basis_dim + 2
+    ns = rng.randint(0, 9, R).astype(np.int32)
+    offs = np.cumsum(ns).astype(np.int32)
+    M = int(offs[-1]) + 100                        # a padded tail
+    res = rng.randn(M, out_dim).astype(np.float32)
+    res[:, min(3, out_dim - 1)] = np.abs(res[:, min(3, out_dim - 1)]) * 3
+    if opaque:
+        starts = (offs - ns)[ns >= 2]
+        res[starts, min(3, out_dim - 1)] = 1e8
+    z = np.sort(rng.rand(M).astype(np.float32) * 2)
+    vd = rng.randn(M, 3).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    rop = np.clip(np.searchsorted(offs, np.arange(M), "right"), 0, R - 1)
+    return [torch.as_tensor(a).to(cuda) for a in
+            (res, z, rop.astype(np.int32), offs, ns, vd)]
+
+
+@pytest.mark.parametrize("basis_dim,minmax,fmt_sh,opaque", [
+    (1, (0, 24), True, False), (9, (0, 24), True, False),
+    (9, (1, 5), True, True), (25, (0, 24), True, False),
+    (1, (0, 24), False, False)])
+def test_compact_composite_kernel_matches_plain(cuda, basis_dim, minmax,
+                                                fmt_sh, opaque):
+    """Kernel D against its plain version within 1e-6, no NaN."""
+    from mega_nerf_viewer_tpu_torch.ops import compact_composite as cc
+    args = _compact_cache(cuda, basis_dim, opaque=opaque)
+    opt = P.RenderOptions(basis_minmax=minmax)
+    before = kernels.LAUNCHES["compact_composite"]
+    ok = cc.composite_results_compact_kernel(*args, opt, basis_dim, fmt_sh)
+    assert kernels.LAUNCHES["compact_composite"] == before + 1
+    op = cc.composite_results_compact_reference(*args, opt, basis_dim,
+                                                fmt_sh)
+    assert bool(torch.isfinite(ok).all())
+    assert float((ok - op).abs().max()) <= 1e-6
+    empty = args[4] == 0
+    assert bool((ok[empty] == torch.tensor([0.0, 0, 0, 1],
+                                           device=cuda)).all())
+
+
+def test_guided_frame_on_card_matches_cpu(cuda):
+    """The guided path (collect, reconstruct, query, composite) on the
+    card against the plain path on the CPU, at 48x40."""
+    frames, caches = [], []
+    for dev in ("cpu", cuda):
+        tree = P.sphere_tree(basis_dim=1, depth=5, device=dev)
+        lm = P.build_leaf_map(tree)
+        table = P.build_skip_table(tree, P.RenderOptions().sigma_thresh)
+        model = P.MegaNeRFModel.synthetic(
+            data_dim=4, n_clusters=4, grid_dim=(2, 2), need_viewdir=True,
+            device=dev)
+        opt = P.RenderOptions(max_guided_samples=16, need_viewdir=True)
+        cam = P.Camera(48, 40, 30.0)
+        cam.center = np.array([-1.5, 0.1, 1.4], np.float32)
+        cam._update()
+        cache = P.collect_and_query_fast(tree, lm, model, cam, opt,
+                                         chunk_size=64, skip_table=table)
+        caches.append(cache)
+        frames.append(P.composite_frame(tree, cam, opt, cache).cpu())
+    c, g = caches
+    same = (c["num_samples"] == g["num_samples"].cpu())
+    assert int((~same).sum()) <= 2
+    err = float((frames[0] - frames[1]).reshape(-1, 4)[same].abs().max())
+    assert err <= 1e-4
+
+
+def test_stale_viewdir_frame_launches_kernel(cuda):
+    """A frame after a rot_dirs change (stale cached view directions) and a
+    frame from a cache without them both composite through kernel D, and
+    agree with the plain path on the CPU."""
+    frames = []
+    for dev in ("cpu", cuda):
+        tree = P.sphere_tree(basis_dim=4, depth=4, device=dev)
+        model = P.MegaNeRFModel.synthetic(
+            data_dim=13, n_clusters=4, grid_dim=(2, 2), need_viewdir=True,
+            device=dev)
+        opt = P.RenderOptions(max_guided_samples=16, need_viewdir=True)
+        cam = P.Camera(48, 40, 30.0)
+        cam.center = np.array([-1.5, 0.1, 1.4], np.float32)
+        cam._update()
+        cache = P.collect_and_query_fast(tree, P.build_leaf_map(tree), model,
+                                         cam, opt, chunk_size=64)
+        rot = opt.replace(rot_dirs=(0.35, -0.2, 0.1))
+        before = kernels.LAUNCHES["compact_composite"]
+        stale = P.composite_frame(tree, cam, rot, cache)
+        no_vdirs = P.composite_frame(tree, cam, rot,
+                                     dict(cache, vdirs_c=None))
+        if dev == cuda:
+            assert kernels.LAUNCHES["compact_composite"] == before + 2
+        frames.append((stale.cpu(), no_vdirs.cpu(),
+                       cache["num_samples"].cpu()))
+    (sc, vc, nc), (sg, vg, ng) = frames
+    assert torch.equal(sg, vg)
+    same = nc == ng
+    assert int((~same).sum()) <= 2
+    assert float((sc - sg).reshape(-1, 4)[same].abs().max()) <= 1e-4
