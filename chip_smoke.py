@@ -18,7 +18,16 @@ shapes of the main paths, and drives both paths of the port:
   basis-1 shell, a synthetic 8-cluster Mega-NeRF model (8 layers, 256
   wide), S = 32 samples per ray: the unordered, ordered and segmented
   invalidations (collect march, reconstruction, MLP query) and the
-  per-frame compact composite.
+  per-frame compact composite;
+* a dynamic octree refinement session at 1080p (phases 10-14), as
+  ``Viewer.render`` and ``benchmarks/refine_throughput.py`` drive the
+  JAX package — the guided scene with a capacity that runs out within
+  three expands, the same model, ``split_batch_size`` 4096: vote frames
+  on the fast path (kernel A with votes), split and resample with the
+  leaf map rebuilt after each edit, ``refine_throughput.py``'s device
+  loop, a visit-tracked exact frame (kernel E) and a prune, guided
+  sampling with splitting (the exact collect, kernel F, and the padded
+  compositor, kernel G) and depth mode through kernels E, A and G.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -50,6 +59,16 @@ MARCH_OPS_PER_STEP = 45
 # plus the SH basis evaluation of that B
 COMPOSITE_OPS = 24
 SH_EVAL_OPS = {1: 0, 4: 3, 9: 18, 16: 48, 25: 89}
+# f32 operations of one exact-march step, counted from
+# csrc/descend_step.cuh and csrc/exact_march.cu: position and clip (9), one
+# descent level (16), the exit (13), exp, weight and the vote rule (12);
+# further descent levels and a shaded sample (6*B + 15) come on top.  Its
+# bytes at the least: one i32 child read, the f16 sigma and the i16 count
+EXACT_OPS_PER_STEP = 50
+EXACT_BYTES_PER_STEP = 8
+# f32 operations of one recorded exact-collect sample (csrc/exact_collect.cu):
+# z (9), the position (3), the cluster id (8)
+RECORD_OPS = 20
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1111.0
 CENTER = (-1.4, 0.1, 1.3)
 N_FRAMES, ROUNDS = 10, 3
@@ -58,6 +77,20 @@ GUIDED_S = 32
 GUIDED_MODEL = dict(n_clusters=8, hidden=256, n_layers=8, grid_dim=(2, 4),
                     min_position=(-1.5, -1.5, -1.5),
                     max_position=(1.5, 1.5, 1.5), need_viewdir=True)
+# the refinement session: benchmarks/refine_throughput.py's options with
+# the guided path's samples; the capacity leaves room for three expands of
+# split_batch_size chunks past the shell's 60,033
+REFINE_OPT = dict(use_splitting=True, split_batch_size=4096, max_depth=16,
+                  samples_per_corner=8, max_sample_count=256,
+                  max_guided_samples=GUIDED_S, need_viewdir=True)
+SHELL_CHUNKS = 60033
+REFINE_CAPACITY = SHELL_CHUNKS + 3 * 4096
+SESSION_ITERS = 5
+# benchmarks/refine_throughput.py: its tree's max_capacity and iterations
+THROUGHPUT_CAPACITY = 400_000
+THROUGHPUT_ITERS = 5
+# kernel G's synthetic cache: rays, S (the default max_guided_samples), basis
+PADDED_SYNTH = (1 << 17, 128, 9)
 
 
 def log(*a):
@@ -361,21 +394,157 @@ def main():
     check(n_bad <= 4, "card and CPU hints differ on more than 0.1% of rays")
     check(err_small <= 1e-5, "card and CPU frames differ")
 
-    del tree, leaf_map, table, img, hint_img, steps, nrec, skips, order
+    del img, hint_img, steps, nrec, skips, order
+    torch.cuda.empty_cache()
+    exact_voxel_phase(P, kernels, dev, tree, leaf_map, cam, opt, report)
+    del tree, leaf_map, table
     torch.cuda.empty_cache()
     guided_launches = guided_phases(P, kernels, dev, report)
+    refine_launches = refine_phases(P, kernels, dev, report)
 
-    # launches: each path's own run (phase 4 and phase 8), summed for the
-    # prepass, which both paths run
+    # launches: each path's own run (phases 4, 8 and 12), summed over the
+    # paths for the kernels that several paths run
     for k in report:
-        k["launches"] = (frame_launches.get(k["name"], 0)
-                         + guided_launches.get(k["name"], 0))
+        k["launches"] = sum(run.get(k["name"], 0) for run in (
+            frame_launches, guided_launches, refine_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))
     return 0
+
+
+def exact_bound(m, outs, steps_total, shaded, data_dim):
+    """Bytes and operations of one exact march from the setup ``m``: its
+    per-ray inputs and ``outs`` once, EXACT_BYTES_PER_STEP and
+    EXACT_OPS_PER_STEP per step, a data row and 6*B + 15 ops per shaded
+    sample."""
+    B = m.basis.shape[1]
+    return bound_ms(
+        nbytes(m.d, m.invdir, m.delta_scale, m.tmin, m.tmax, m.miss,
+               m.basis, *outs)
+        + EXACT_BYTES_PER_STEP * steps_total + 2 * data_dim * shaded,
+        EXACT_OPS_PER_STEP * steps_total + (6 * B + 15) * shaded)
+
+
+def exact_voxel_phase(P, kernels, dev, tree, leaf_map, cam, opt, report):
+    """Phase 10: kernel E, the exact march, with and without visit marks,
+    and kernel A with votes and in depth mode, each against its plain
+    version on the 1080p voxel frame; then A's votes against E's on the
+    same rays (vote frames take no skip table, so both start at tmin)."""
+    from mega_nerf_viewer_tpu_torch.ops import accel, render
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, screen2worlddir
+    dirs, cen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                cam.cy, torch.as_tensor(cam.transform,
+                                                        device=dev))
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+    votes = (opt.max_depth, opt.max_sample_count)
+    names = ("split_vote", "sample_vote", "visited", "steps")
+    err_e = 0.0
+    exact = {}
+    for depth_mode in (False, True):
+        o = opt.replace(render_depth=depth_mode)
+        m = accel.march_inputs(tree, dirs, vdirs, cen, o)
+        for track in ((False, True) if not depth_mode else (False,)):
+            ok = kernels.exact_march(tree, m, o, track,
+                                     render.DEFAULT_MAX_LEVELS, 0)
+            op = render.exact_march_reference(tree, m, o, track)
+            err = float((ok[0] - op[0]).abs().max())
+            log(f"kernel exact_march (depth {depth_mode}, track_visit "
+                f"{track}): out max abs diff {err:.3e}, steps "
+                f"{int(ok[4].sum())} (max {int(ok[4].max())}), visited "
+                f"chunks {int(ok[3].sum())}")
+            for name, a, b in zip(names, ok[1:], op[1:]):
+                check(torch.equal(a, b), f"exact march {name} differs "
+                      f"(depth {depth_mode}, track_visit {track})")
+            check(err <= 1e-6, f"exact march out differs by {err}")
+            check(bool(torch.isfinite(ok[0]).all()), "NaN in kernel E")
+            if track:
+                check(int(ok[3].sum()) > 1, "no chunk marked visited")
+            err_e = max(err_e, err)
+            exact[(depth_mode, track)] = ok
+            del op
+        # kernel A with votes on the same rays, at a budget that holds
+        # every dense sample, against its plain version and against E
+        md = 8
+        while True:
+            args = (tree, leaf_map, m.cen, m.d, m.invdir, m.delta_scale,
+                    m.tmin, m.tmax, m.miss, m.basis, m.step_size,
+                    m.sigma_thresh, m.stop_thresh, md, m.use_sh)
+            kw = dict(votes=votes, render_depth=depth_mode)
+            ka = kernels.march(*args, **kw)
+            if not int(ka[1]):
+                break
+            md *= 2
+            check(md <= 512, "pathological dense-sample count")
+        pa = accel.render_rays_fast_reference(*args, **kw)
+        err = float((ka[0] - pa[0]).abs().max())
+        for name, a, b in zip(("overflow", "nsteps", "nrec", "split_vote",
+                               "sample_vote"), ka[1:], pa[1:]):
+            check(torch.equal(a, b), f"march {name} differs with votes "
+                  f"(depth {depth_mode})")
+        check(err <= 1e-6, f"march with votes differs by {err}")
+        ke = exact[(depth_mode, False)]
+        err_ea = float((ka[0] - ke[0]).abs().max())
+        n_sv = int((ka[4] != ke[1]).any(1).sum())
+        n_pv = int((ka[5] != ke[2]).any(1).sum())
+        log(f"kernel march with votes (depth {depth_mode}, md {md}): out "
+            f"max abs diff {err:.3e} to plain; against kernel E: {n_sv} "
+            f"rays with other split votes, {n_pv} with other sample votes, "
+            f"rgba max abs diff {err_ea:.3e}")
+        check(n_sv == 0 and n_pv == 0, "kernel A's votes differ from E's")
+        check(torch.equal(ka[2], ke[4]), "kernel A's steps differ from E's")
+        check(err_ea <= 1e-6, f"kernel A's rgba differs from E's by {err_ea}")
+        if depth_mode:
+            ms_ad, by_ad = device_ms(lambda: kernels.march(*args, **kw), 20)
+            log(f"kernel march in depth mode with votes: {ms_ad:.4f} ms on "
+                f"the device ({by_ad})")
+            continue
+        steps_total = int(ke[4].sum())
+        shaded = int(ka[3].sum())
+        ms_av, by_av = device_ms(lambda: kernels.march(*args, **kw), 20)
+        ms_a0, by_a0 = device_ms(lambda: kernels.march(*args), 20)
+        log(f"kernel march from tmin: {ms_av:.4f} ms with votes ({by_av}), "
+            f"{ms_a0:.4f} ms without ({by_a0}); {steps_total} steps, "
+            f"{shaded} dense samples")
+        ms_e, by_e = device_ms(lambda: kernels.exact_march(
+            tree, m, o, False, render.DEFAULT_MAX_LEVELS, 0), 10)
+        ms_ev, by_ev = device_ms(lambda: kernels.exact_march(
+            tree, m, o, True, render.DEFAULT_MAX_LEVELS, 0), 10)
+        plain_e = cuda_ms(lambda: render.exact_march_reference(
+            tree, m, o, False), 1)
+        be, be_by = exact_bound(m, ke[:3] + (ke[4],), steps_total, shaded,
+                                tree.data_dim)
+        log(f"kernel exact_march: {ms_e:.4f} ms on the device ({by_e}), "
+            f"{ms_ev:.4f} ms with visit marks ({by_ev}); plain "
+            f"{plain_e:.2f} ms, bound {be:.4f} ms by {be_by}")
+        del ka, pa
+    report.append(dict(
+        name="exact_march", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/exact_march.cu",
+        replaces="mega_nerf_viewer_tpu/ops/render.py:119",
+        max_abs_err=err_e, ms=ms_e, ms_by=by_e, plain_ms=plain_e,
+        bound_ms=be, bound_by=be_by, library_ms=None))
+    del exact, dirs, vdirs
+
+
+def timed(fn):
+    """(result, wall ms) of one call of ``fn``, the card synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def median3(fn):
+    """(last result, median wall ms, the three runs) of three calls."""
+    runs = []
+    for _ in range(3):
+        out, ms = timed(fn)
+        runs.append(ms)
+    return out, sorted(runs)[1], runs
 
 
 def composite_bound(res_c, offs, ns, total, basis_dim, minmax, fmt_sh):
@@ -548,23 +717,14 @@ def guided_phases(P, kernels, dev, report):
             tree, leaf_map, model, cam, opt, chunk_size=cs,
             skip_table=table, order=order, **kw)
 
-    def time_invalidation(**kw):
-        ts = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = invalidate(**kw)
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        return out, sorted(ts)[1], ts
-
     invalidate()                                 # warm the ordered path
-    cache, inval_ms, inval_ts = time_invalidation()
+    cache, inval_ms, inval_ts = median3(invalidate)
     n_samples = int(cache["num_samples"].sum())
     segs = P.segments_from_ns_hints(ns_h, GUIDED_S)
     cache_s = invalidate(segments=segs)             # escalation settles here
     settled = cache_s["segments"]
-    cache_s, inval_seg_ms, seg_ts = time_invalidation(segments=settled)
+    cache_s, inval_seg_ms, seg_ts = median3(
+        lambda: invalidate(segments=settled))
     check(int(cache_s["num_samples"].sum()) == n_samples,
           "segmented sample total differs from the ordered one")
 
@@ -667,6 +827,426 @@ def guided_phases(P, kernels, dev, report):
         f"{err_small:.3e}")
     check(n_bad <= 4, "card and CPU samples differ on more than 0.1% of rays")
     check(err_small <= 1e-4, "card and CPU guided frames differ")
+    return launches
+
+
+def synthetic_padded(dev, R, S, basis_dim, seed=0):
+    """A padded cache of R rays x S slots made on the card from a seed: 0-S
+    valid slots per ray, sigma >= 0, increasing z, unit view directions,
+    an opaque first sample (sigma 1e8) on every 7th ray."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out_dim = 3 * basis_dim + 2
+    sidx = min(3, out_dim - 1)
+    ns = torch.randint(0, S + 1, (R,), generator=g, device=dev,
+                       dtype=torch.int32)
+    res = torch.randn((R, S, out_dim), generator=g, device=dev)
+    res[..., sidx] = res[..., sidx].abs() * 3
+    res[::7, 0, sidx] = 1e8
+    z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 2,
+                   dim=1).values
+    vd = torch.randn((R, 3), generator=g, device=dev)
+    return res, z, ns, vd / vd.norm(dim=1, keepdim=True)
+
+
+def padded_bound(res, ns, B):
+    """Bytes and operations of one SH padded composite: the valid slots of
+    res and z, ns, the basis and the rgba out; COMPOSITE_OPS + 6 B per
+    valid slot (the basis comes in computed)."""
+    R, _, out_dim = res.shape
+    valid = int(ns.sum())
+    return bound_ms(valid * (out_dim + 1) * 4 + R * (4 + 16 + 4 * B),
+                    (COMPOSITE_OPS + 6 * B) * valid)
+
+
+def small_refinement(P, dev):
+    """Phase 14: two expands, a resample, a visit-tracked exact frame and
+    a prune of a small tree, on the card and on the CPU from the same
+    uniform draws; the trees and trackers must agree (data within one f16
+    ulp)."""
+    from mega_nerf_viewer_tpu_torch.ops import refine
+    gen = torch.Generator().manual_seed(0)
+    K, spc = 64, 8
+    draws = [torch.rand((K * 8, spc, 3), generator=gen) for _ in range(2)]
+    draws.append(torch.rand((K, spc, 3), generator=gen))
+    out = []
+    for d in ("cpu", dev):
+        tree = P.sphere_tree(basis_dim=1, depth=3, max_capacity=400,
+                             device=d)
+        model = P.MegaNeRFModel.synthetic(data_dim=4, n_clusters=4,
+                                          need_viewdir=True, device=d)
+        opt = P.RenderOptions(use_splitting=True, split_batch_size=K,
+                              need_viewdir=True)
+        cam = camera(P.Camera, 48, 48, 45.0)
+        args = (cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.transform, opt)
+        tracker = P.fresh_visit_tracker(tree)
+        caps = [tree.capacity]
+        for i in range(2):
+            _, res = P.render_frame(tree, *args)
+            k = len(refine.aggregate_split_votes(res.split_vote, K))
+            tree, tracker, _ = P.expand_voxels(
+                tree, model, opt, res.split_vote, tracker,
+                rnd=draws[i][:k * 8].to(d))
+            caps.append(tree.capacity)
+        _, res = P.render_frame(tree, *args)
+        k = len(refine.aggregate_sample_votes(res.sample_vote, K))
+        tree = P.get_more_samples(tree, model, opt, res.sample_vote,
+                                  rnd=draws[2][:k].to(d))
+        _, res = P.render_frame(tree, *args, track_visit=True)
+        tracker = torch.maximum(tracker, res.visited)
+        tree, fresh = P.prune_tree(tree, tracker)
+        caps.append(tree.capacity)
+        out.append((tree, tracker.cpu(), fresh.cpu(), caps))
+    (tc, vc, fc, cc), (tg, vg, fg, cg) = out
+    log(f"small refinement, card vs CPU: capacity {cg} on the card, {cc} on "
+        f"the CPU")
+    check(cc == cg, "card and CPU capacities differ")
+    check(cg[1] > cg[0] and cg[3] < cg[2], "no split or no prune happened")
+    for k in ("child", "parent", "sample_counts"):
+        check(torch.equal(getattr(tc, k), getattr(tg, k).cpu()),
+              f"card and CPU {k} differ after refinement")
+    check(torch.equal(vc, vg) and torch.equal(fc, fg),
+          "card and CPU visit trackers differ")
+    ulp = (tc.data.view(torch.int16).int()
+           - tg.data.cpu().view(torch.int16).int()).abs()
+    log(f"small refinement: data within {int(ulp.max())} f16 ulp")
+    check(int(ulp.max()) <= 1, "card and CPU data differ by more than 1 ulp")
+
+
+def refine_phases(P, kernels, dev, report):
+    """Phases 11-14: dynamic octree refinement at 1080p.  Returns the
+    launch counts of the session (phase 12)."""
+    from mega_nerf_viewer_tpu_torch.ops import accel, guided, render
+    from mega_nerf_viewer_tpu_torch.ops import padded_composite as pc
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, screen2worlddir
+    from mega_nerf_viewer_tpu_torch.ops.sh import masked_sh_basis
+
+    t0 = time.perf_counter()
+    tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                        max_capacity=REFINE_CAPACITY, device=dev)
+    check(tree.capacity == SHELL_CHUNKS, f"shell has {tree.capacity} chunks")
+    model = P.MegaNeRFModel.synthetic(data_dim=int(tree.data_dim), seed=0,
+                                      device=dev, **GUIDED_MODEL)
+    opt = P.RenderOptions(**REFINE_OPT)
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    cs = P.device_tuning(dev).chunk_size
+    frame_args = (WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy,
+                  cam.transform)
+    dirs, cen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                cam.cy, torch.as_tensor(cam.transform,
+                                                        device=dev))
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+    grid = (torch.as_tensor(model.grid_dim, device=dev).to(torch.int32),
+            torch.as_tensor(model.min_position, device=dev).float(),
+            torch.as_tensor(model.range, device=dev).float())
+    torch.cuda.synchronize()
+    log(f"refinement scene: shell depth 8 basis 1, {tree.capacity} chunks, "
+        f"max_capacity {REFINE_CAPACITY} (split_batch_size "
+        f"{opt.split_batch_size}); model {model.n_clusters} clusters x "
+        f"{len(model.params.weights)} layers x {GUIDED_MODEL['hidden']}; "
+        f"max_depth {opt.max_depth}, samples_per_corner "
+        f"{opt.samples_per_corner}, S {opt.max_guided_samples}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 11. kernel F, the exact collect, against its plain version ----
+    m = guided.collect_inputs(tree, dirs, cen, opt)
+    col_args = (tree, m, dirs, vdirs, cen, grid, opt)
+    ok = kernels.exact_collect(*col_args, True, render.DEFAULT_MAX_LEVELS)
+    op = guided.exact_collect_reference(*col_args, True)
+    err_f = float((ok[0] - op[0]).abs().max())
+    for name, a, b in zip(("cluster_ids", "ns", "split_vote", "sample_vote",
+                           "visited", "steps"), ok[1:], op[1:]):
+        check(torch.equal(a, b), f"exact collect {name} differs")
+    check(err_f <= 1e-6, f"exact collect samples differ by {err_f}")
+    n_rec, steps_total = int(ok[2].sum()), int(ok[6].sum())
+    log(f"kernel exact_collect S={opt.max_guided_samples}: samples {n_rec}, "
+        f"steps {steps_total}, visited chunks {int(ok[5].sum())}; samples "
+        f"max abs diff {err_f:.3e}")
+    ms_f, by_f = device_ms(lambda: kernels.exact_collect(
+        *col_args, False, render.DEFAULT_MAX_LEVELS), 10)
+    plain_f = cuda_ms(lambda: guided.exact_collect_reference(*col_args), 1)
+    bf, bf_by = bound_ms(
+        nbytes(m.d, m.invdir, m.delta_scale, m.tmin, m.tmax, m.miss, dirs,
+               vdirs, *ok[:5], ok[6]) + 4 * dirs.shape[0]
+        + EXACT_BYTES_PER_STEP * steps_total,
+        EXACT_OPS_PER_STEP * steps_total + RECORD_OPS * n_rec)
+    log(f"kernel exact_collect: {ms_f:.4f} ms on the device ({by_f}; with "
+        f"the wrapper's fills; plain {plain_f:.2f} ms, bound {bf:.4f} ms "
+        f"by {bf_by})")
+    report.append(dict(
+        name="exact_collect", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/exact_collect.cu",
+        replaces="mega_nerf_viewer_tpu/ops/guided.py:60",
+        max_abs_err=err_f, ms=ms_f, ms_by=by_f, plain_ms=plain_f,
+        bound_ms=bf, bound_by=bf_by, library_ms=None))
+    del ok, op, m
+    torch.cuda.empty_cache()
+
+    # -- 12. the session (viewer.py:368-479, refine_throughput.py) -----
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tracker = P.fresh_visit_tracker(tree)
+    state = dict(order=None, segments=list(P.DEFAULT_SEGMENTS), md=8)
+    edits = []
+
+    def vote_frame(cur, lm):
+        """One vote frame as Viewer._render_fast(need_votes=True) makes
+        it, without a skip table: the segmented frame on the order, else
+        (first frame, or a segment overflowed) the hint frame, which
+        builds the order; the exact frame if even budget 128 overflows
+        (viewer.py:640-795).  Returns (img, split_vote, sample_vote)."""
+        if state["order"] is not None:
+            out = P.render_frame_fast_segmented(
+                cur, lm, cam, opt, order=state["order"],
+                segments=tuple(state["segments"]), chunk_size=cs,
+                need_votes=True)
+            ov = out[1].cpu().numpy()
+            if not ov.any():
+                return out[0], out[2], out[3]
+            state["segments"] = [(f, min(max(1, b * 2), 128)) if hit
+                                 else (f, b) for (f, b), hit in
+                                 zip(state["segments"], ov)]
+        md = state["md"]
+        while True:
+            img, ov, steps, sv, pv, nrec, skips = P.render_frame_fast(
+                cur, lm, cam, opt, max_dense=md, chunk_size=cs,
+                need_votes=True, return_nrec=True, return_skips=True)
+            if not int(ov) or md >= 128:
+                break
+            md *= 2
+        state["md"] = md
+        state["order"] = P.order_from_hints(steps, nrec, skips)
+        if int(ov):
+            img, res = P.render_frame(cur, *frame_args, opt)
+            return img, res.split_vote, res.sample_vote
+        return img, sv, pv
+
+    def edit(cur, tracker, sv, pv, what):
+        """Viewer._expand_voxels: split; when nothing was added, resample
+        (viewer.py:1303-1321)."""
+        cap0 = cur.capacity
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, tracker, added = P.expand_voxels(cur, model, opt, sv, tracker,
+                                              generator=gen)
+        kind = "split"
+        if added == 0:
+            new = P.get_more_samples(cur, model, opt, pv, generator=gen)
+            kind = "resample"
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        edits.append(dict(after=what, kind=kind, added=added,
+                          capacity=(cap0, new.capacity), ms=round(ms, 3)))
+        return new, tracker
+
+    def pressure(cur):
+        return cur.max_capacity - cur.capacity < opt.split_batch_size
+
+    t_sess = time.perf_counter()
+    lm = P.build_leaf_map(tree)
+    (img, sv, pv), first_vote_ms = timed(lambda: vote_frame(tree, lm))
+    check(bool(torch.isfinite(img).all()), "non-finite vote frame")
+    n_iters, pressure_at = 0, None
+    for i in range(SESSION_ITERS):
+        tree, tracker = edit(tree, tracker, sv, pv, f"vote frame {i}")
+        n_iters += 1
+        if pressure_at is None and pressure(tree):
+            pressure_at = n_iters
+        lm = P.build_leaf_map(tree)
+        img, sv, pv = vote_frame(tree, lm)
+        check(bool(torch.isfinite(img).all()), "non-finite vote frame")
+        if edits[-1]["kind"] == "resample":
+            break
+    check(pressure_at is not None and 3 <= pressure_at <= 5,
+          f"capacity pressure came after expand {pressure_at}, not 3-5")
+    check(any(e["kind"] == "resample" for e in edits),
+          "no resample ran in the session")
+    vote_rounds = sorted(cuda_ms(lambda: vote_frame(tree, lm), N_FRAMES)
+                         for _ in range(ROUNDS))
+    vote_ms = vote_rounds[ROUNDS // 2]
+    log(f"session steps 1-2: first vote frame {first_vote_ms:.1f} ms; "
+        f"{n_iters} edits, capacity pressure after expand {pressure_at}; "
+        f"leaf map level {lm.level} (+{lm.deep_levels} deep); vote frame "
+        f"{vote_ms:.3f} ms/frame (rounds "
+        f"{[round(r, 3) for r in vote_rounds]}), segments "
+        f"{state['segments']}, hint budget {state['md']}; edits {edits}")
+
+    # refine_throughput.py's device loop on its own tree and capacity
+    cur = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                       max_capacity=THROUGHPUT_CAPACITY, device=dev)
+    ttracker = P.fresh_visit_tracker(cur)
+
+    def throughput_step(cur, ttracker):
+        tlm = P.build_leaf_map(cur)
+        tsv = accel.render_rays_fast(cur, tlm, dirs, vdirs, cen, opt,
+                                     max_dense=32, chunk_size=4096,
+                                     need_votes=True).split_vote
+        return P.expand_voxels_jit(cur, model.params, *grid, opt, tsv,
+                                   ttracker, generator=gen), tlm
+
+    for _ in range(2):                    # warm-up, as the benchmark does
+        (cur, ttracker, _n), tlm = throughput_step(cur, ttracker)
+    warm_shape = (tlm.level, tlm.deep_levels)
+    total_added = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(THROUGHPUT_ITERS):
+        (cur, ttracker, n), tlm = throughput_step(cur, ttracker)
+        total_added += n
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    check(total_added > 0, "the device expand loop added nothing")
+    spc = opt.samples_per_corner
+    log("refine_throughput: " + json.dumps({
+        "splits_per_sec": total_added / dt,
+        "voxels_filled_per_sec": total_added * 8 / dt,
+        "mlp_evals_per_sec": total_added * 8 * spc / dt,
+        "iterations": THROUGHPUT_ITERS, "total_added": total_added,
+        "final_capacity": cur.capacity, "ms_per_iteration":
+        dt * 1e3 / THROUGHPUT_ITERS, "leafmap_shape_stable":
+        (tlm.level, tlm.deep_levels) == warm_shape}))
+    del cur, ttracker, tlm
+    torch.cuda.empty_cache()
+
+    # step 3: capacity pressure: a visit-tracked exact frame, the prune,
+    # a vote frame on the pruned tree
+    check(pressure(tree), "no capacity pressure before the prune")
+    (img_e, res_e), exact_visit_ms = timed(lambda: P.render_frame(
+        tree, *frame_args, opt, track_visit=True))
+    tracker = torch.maximum(tracker, res_e.visited)
+    check(bool(torch.isfinite(img_e).all()), "non-finite exact frame")
+    exact_ms = sorted(cuda_ms(lambda: P.render_frame(tree, *frame_args, opt),
+                              3) for _ in range(ROUNDS))[ROUNDS // 2]
+    exact_visit_ms = sorted(cuda_ms(lambda: P.render_frame(
+        tree, *frame_args, opt, track_visit=True), 3)
+        for _ in range(ROUNDS))[ROUNDS // 2]
+    cap0 = tree.capacity
+    (tree, tracker), prune_ms = timed(lambda: P.prune_tree(tree, tracker))
+    edits.append(dict(after="exact frame", kind="prune", added=0,
+                      capacity=(cap0, tree.capacity), ms=round(prune_ms, 3)))
+    check(tree.capacity < cap0, "the prune reclaimed nothing")
+    lm = P.build_leaf_map(tree)
+    state["order"] = None                 # the tree moved under the order
+    img, sv, pv = vote_frame(tree, lm)
+    check(bool(torch.isfinite(img).all()), "non-finite vote frame")
+    log(f"session step 3: exact frame {exact_ms:.3f} ms, with visit marks "
+        f"{exact_visit_ms:.3f} ms; visited chunks "
+        f"{int(res_e.visited.sum())}; prune {prune_ms:.3f} ms, reclaimed "
+        f"{cap0 - tree.capacity} chunks ({cap0} -> {tree.capacity})")
+    profile_frames(lambda: P.render_frame(tree, *frame_args, opt,
+                                          track_visit=True),
+                   exact_visit_ms, n=1, what="exact frame")
+    del img_e, res_e
+
+    # step 4: guided sampling with splitting (viewer.py:1181-1296)
+    (cache, rres), first_inval_ms = timed(lambda: P.collect_and_query(
+        tree, model, cam, opt, track_visit=True))
+    tracker = torch.maximum(tracker, rres.visited)
+    img_g = P.composite_frame(tree, cam, opt, cache)
+    check(img_g.shape == (HEIGHT, WIDTH, 4), f"guided frame {img_g.shape}")
+    check(bool(torch.isfinite(img_g).all()), "non-finite guided pixels")
+    check(bool((img_g[..., 3] == 1).all()), "guided alpha is not 1")
+    check(float(img_g[..., :3].max()) > 0, "black guided frame")
+
+    def invalidate():
+        return P.collect_and_query(tree, model, cam, opt)
+
+    _, inval_ms, inval_runs = median3(invalidate)
+
+    def frame(o=opt):
+        return P.composite_frame(tree, cam, o, cache)
+
+    rounds = sorted(cuda_ms(frame, N_FRAMES) for _ in range(ROUNDS))
+    comp_ms = rounds[ROUNDS // 2]
+    n_samples = int(cache["num_samples"].sum())
+    log(f"session step 4: first invalidation (visit marks) "
+        f"{first_inval_ms:.1f} ms; invalidation {inval_ms:.3f} ms (runs "
+        f"{[round(r, 3) for r in inval_runs]}); {n_samples} MLP samples; "
+        f"padded composite {comp_ms:.3f} ms/frame (rounds "
+        f"{[round(r, 3) for r in rounds]})")
+    profile_frames(invalidate, inval_ms, n=1, what="invalidation")
+    profile_frames(frame, comp_ms, what="padded frame")
+    tree, tracker = edit(tree, tracker, rres.split_vote, rres.sample_vote,
+                         "guided frame")
+
+    # step 5: depth mode: an exact frame, a fast frame, a padded composite
+    opt_d = opt.replace(render_depth=True)
+    lm = P.build_leaf_map(tree)
+    img_de, _ = P.render_frame(tree, *frame_args, opt_d)
+    md = state["md"]
+    while True:
+        img_df, ov, _ = P.render_frame_fast(tree, lm, cam, opt_d,
+                                            max_dense=md, chunk_size=cs)
+        if not int(ov):
+            break
+        md *= 2
+        check(md <= 512, "pathological dense-sample count")
+    img_dg = frame(opt_d)
+    for name, im in (("exact", img_de), ("fast", img_df), ("padded", img_dg)):
+        check(bool(torch.isfinite(im).all()), f"non-finite {name} depth")
+        check(bool((im[..., 3] == 1).all()), f"{name} depth alpha is not 1")
+    err_depth = float((img_de - img_df).abs().max())
+    log(f"session step 5: depth frames, exact vs fast max abs diff "
+        f"{err_depth:.3e}; depth range {float(img_de[..., 0].min()):.4f} - "
+        f"{float(img_de[..., 0].max()):.4f}")
+    check(err_depth <= 1e-6, "exact and fast depth frames differ")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"refinement session: {time.perf_counter() - t_sess:.1f} s; "
+        f"launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
+        f"capacity by edit {[(e['kind'], e['capacity']) for e in edits]}")
+    for k in ("march", "exact_march", "exact_collect", "padded_composite"):
+        check(launches[k] > 0, f"a kernel of the session never launched: "
+              f"{launches}")
+    del img, img_g, img_de, img_df, img_dg, rres, sv, pv
+
+    # -- 13. kernel G, the padded compositor, against its plain version
+    real = (cache["results"], cache["z_vals"], cache["num_samples"], vdirs)
+    synth = synthetic_padded(dev, *PADDED_SYNTH)
+    err_g = 0.0
+    B_s = PADDED_SYNTH[2]
+    for name, c, B, o in (("real", real, 1, opt),
+                          ("real depth", real, 1, opt_d),
+                          ("synthetic", synth, B_s, opt),
+                          ("synthetic depth", synth, B_s, opt_d)):
+        ok = pc.composite_results_padded(*c, o, B, True)
+        op = pc.composite_results_padded_reference(*c, o, B, True)
+        err = float((ok - op).abs().max())
+        R, S, out_dim = c[0].shape
+        log(f"kernel padded_composite ({name}, {R} rays x S {S}, out_dim "
+            f"{out_dim}, {int(c[2].sum())} samples): max abs diff {err:.3e}")
+        check(bool(torch.isfinite(ok).all()), f"NaN in kernel G ({name})")
+        check(err <= 1e-6, f"padded composite differs by {err} ({name})")
+        err_g = max(err_g, err)
+        del ok, op
+        if o.render_depth:
+            continue
+        # the kernel alone, the basis computed outside as the wrapper does
+        args = (c[0], c[1].contiguous(), c[2],
+                masked_sh_basis(B, c[3], *o.basis_minmax).contiguous(),
+                pc.MODE_SH)
+        ms, by = device_ms(lambda: kernels.padded_composite(*args), 20)
+        plain = cuda_ms(lambda: pc.composite_results_padded_reference(
+            *c, o, B, True), 2)
+        bg, bg_by = padded_bound(c[0], c[2], B)
+        log(f"kernel padded_composite ({name}): {ms:.4f} ms on the device "
+            f"({by}; plain {plain:.2f} ms, bound {bg:.4f} ms by {bg_by})")
+        if name == "real":
+            times = dict(ms=ms, ms_by=by, plain_ms=plain, bound_ms=bg,
+                         bound_by=bg_by, library_ms=None)
+        del args
+    report.append(dict(
+        name="padded_composite", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/padded_composite.cu",
+        replaces="mega_nerf_viewer_tpu/ops/pallas_composite.py:361",
+        max_abs_err=err_g, **times))
+    del cache, real, synth
+    torch.cuda.empty_cache()
+
+    # -- 14. a small refinement on the card against the CPU ------------
+    small_refinement(P, dev)
     return launches
 
 

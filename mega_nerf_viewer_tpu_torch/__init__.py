@@ -8,9 +8,14 @@ is guided sampling through the Mega-NeRF MLPs: the collect march, the
 compact reconstruction and grouped MLP query, and the per-frame compact
 compositor.  Their hot loops are hand-written CUDA kernels for Hopper
 (``csrc/``): the entry-skip prepass, the fused march, the collect march
-and the compact compositor.  Entry points run on the CUDA card unless
-they are given ``device="cpu"``, where the kernels' plain PyTorch
-versions run instead.
+and the compact compositor.  The third is dynamic octree refinement: the
+exact renderer with votes and visit marks, vote frames on the fast path,
+split, resample and prune (``ops/refine.py``), and guided sampling with
+splitting through the exact collect and the padded compositor, with depth
+mode; its kernels are the exact march, the exact collect and the padded
+compositor, and the fused march gained votes and depth.  Entry points run
+on the CUDA card unless they are given ``device="cpu"``, where the
+kernels' plain PyTorch versions run instead.
 """
 
 from .camera import Camera
@@ -20,8 +25,14 @@ from .n3tree import N3Tree, shell_tree, sphere_tree, tree_from_numpy
 from .ops.accel import (DEFAULT_SEGMENTS, LeafMap, build_leaf_map,
                         order_from_hints, render_frame_fast,
                         render_frame_fast_segmented, render_rays_fast)
-from .ops.guided import (collect_and_query_fast, composite_frame,
+from .ops.guided import (GuidedSamples, collect_and_query,
+                         collect_and_query_fast, collect_samples,
+                         composite_frame, composite_results,
                          segments_from_ns_hints)
+from .ops.refine import (expand_voxels, expand_voxels_jit, get_more_samples,
+                         prune_tree)
+from .ops.render import (RenderResult, fresh_visit_tracker, render_frame,
+                         render_rays)
 from .ops.skip_prepass import build_skip_table, entry_skip_prepass
 from .utils.tuning import device_tuning
 
@@ -31,5 +42,8 @@ __all__ = [
     "order_from_hints", "render_frame_fast", "render_frame_fast_segmented",
     "render_rays_fast", "build_skip_table", "entry_skip_prepass",
     "device_tuning", "MegaNeRFModel", "collect_and_query_fast",
-    "composite_frame", "segments_from_ns_hints",
+    "composite_frame", "segments_from_ns_hints", "GuidedSamples",
+    "collect_and_query", "collect_samples", "composite_results",
+    "expand_voxels", "expand_voxels_jit", "get_more_samples", "prune_tree",
+    "RenderResult", "fresh_visit_tracker", "render_frame", "render_rays",
 ]

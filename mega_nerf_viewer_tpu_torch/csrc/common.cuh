@@ -1,5 +1,7 @@
-// Step math shared by the entry-skip prepass, the fused march and the
-// guided collect march (the last two through march_step.cuh).
+// Step math shared by the entry-skip prepass, the fused march, the guided
+// collect march (the last two through march_step.cuh), the exact march and
+// the exact collect (through descend_step.cuh), and the vote rule of the
+// fused march, the exact march and the exact collect.
 //
 // They must advance a ray's t bit for bit alike, and alike to the plain
 // PyTorch versions (ops/skip_prepass.py, ops/accel.py, ops/guided.py) and
@@ -51,6 +53,57 @@ __device__ __forceinline__ int cell_index(float px, float py, float pz,
   int cx = (int)floorf(px * g), cy = (int)floorf(py * g),
       cz = (int)floorf(pz * g);
   return (cx * grid + cy) * grid + cz;
+}
+
+// The split and sample votes of one ray (render.py:217-236, reference
+// rt_core.cuh:237-252): [priority, chunk, child] of the dense sample of
+// largest weight, strictly larger than the best so far, and while the ray
+// has none, of every sample it passes (max_w == -1).  The split vote's
+// priority is the leaf depth, the sample vote's the leaf's sample count.
+struct Votes {
+  float s0, s1, s2, p0, p1, p2;
+  float max_w, max_sw;
+};
+
+__device__ __forceinline__ Votes votes_init(int max_depth,
+                                            int max_sample_count) {
+  return Votes{(float)(max_depth + 1), -1.0f, -1.0f,
+               (float)(max_sample_count + 1), -1.0f, -1.0f, -1.0f, -1.0f};
+}
+
+// One step of an active ray; ``weight`` is read only when ``dense``.
+__device__ __forceinline__ void vote_step(Votes& v, bool dense, float weight,
+                                          int depth, int chunk, int cidx,
+                                          int sc, int max_depth,
+                                          int max_sample_count) {
+  const bool can_split = depth < max_depth;
+  const bool can_sample = sc < max_sample_count;
+  const bool vs = can_split && (dense ? weight > v.max_w : v.max_w == -1.0f);
+  const bool vp =
+      can_sample && (dense ? weight > v.max_sw : v.max_sw == -1.0f);
+  if (vs) {
+    v.s0 = (float)depth;
+    v.s1 = (float)chunk;
+    v.s2 = (float)cidx;
+  }
+  if (vp) {
+    v.p0 = (float)sc;
+    v.p1 = (float)chunk;
+    v.p2 = (float)cidx;
+  }
+  if (dense && can_split && weight > v.max_w) v.max_w = weight;
+  if (dense && can_sample && weight > v.max_sw) v.max_sw = weight;
+}
+
+__device__ __forceinline__ void votes_store(const Votes& v, int r,
+                                            float* __restrict__ sv,
+                                            float* __restrict__ pv) {
+  sv[3 * r] = v.s0;
+  sv[3 * r + 1] = v.s1;
+  sv[3 * r + 2] = v.s2;
+  pv[3 * r] = v.p0;
+  pv[3 * r + 1] = v.p1;
+  pv[3 * r + 2] = v.p2;
 }
 
 }  // namespace mnv

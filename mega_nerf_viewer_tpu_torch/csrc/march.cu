@@ -26,6 +26,13 @@
 // row (56 B for SH9); per ray ~100 B of inputs and outputs.  The f32 math
 // per step is small against the card's rate.
 //
+// Vote frames (need_votes, accel.py:487-513) read one more i16 sample
+// count per step and keep the exact march's split and sample votes
+// (common.cuh vote_step), so a refinement session votes on the fast path.
+// Depth mode (accel.py:524-592) adds weight * t instead of a shaded colour
+// for the recorded samples and writes min(0.3 * sum, 1) in grey with
+// alpha 1; with max_dense = 0 it writes (0, 0, 0, 1).
+//
 // Design, simple first: no shared memory, no async copies; rays that are
 // neighbours in the frame order are neighbours in a warp, so their row
 // reads fall on nearby cells.  The step itself is march_step
@@ -44,7 +51,10 @@ march_kernel(LeafMapTree tr, const float* __restrict__ cen,
              int B, int use_sh, float step_size, float sigma_thresh,
              float stop_thresh, int max_dense, int R,
              float* __restrict__ out, int* __restrict__ nsteps_out,
-             int* __restrict__ nrec_out, int* __restrict__ overflow) {
+             int* __restrict__ nrec_out, int* __restrict__ overflow,
+             const short* __restrict__ counts, int need_votes, int max_depth,
+             int max_sample_count, int render_depth,
+             float* __restrict__ sv_out, float* __restrict__ pv_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
 
@@ -63,16 +73,28 @@ march_kernel(LeafMapTree tr, const float* __restrict__ cen,
   int nd = 0, ns = 0;
   bool stopped = false, over = false;
   bool active = !ray_miss && t < tm;
+  Votes v = votes_init(max_depth, max_sample_count);
   while (active) {
     ++ns;
     const MarchStep st =
         march_step(tr, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
     const float sigma = st.sigma;
     const float delta_t = st.delta_t;
-    if (sigma > sigma_thresh) {
-      const float att = expf(-delta_t * ds * sigma);
-      const float weight = T * (1.0f - att);
-      if (nd < max_dense) {
+    const bool dense = sigma > sigma_thresh;
+    float att = 1.0f, weight = 0.0f;
+    if (dense) {
+      att = expf(-delta_t * ds * sigma);
+      weight = T * (1.0f - att);
+    }
+    if (need_votes) {
+      const int sc = counts[clampll(st.node, tr.n_nodes)];
+      vote_step(v, dense, weight, st.depth, st.node >> 3, st.node & 7, sc,
+                max_depth, max_sample_count);
+    }
+    if (dense) {
+      if (nd < max_dense && render_depth) {
+        acc0 = acc0 + weight * t;
+      } else if (nd < max_dense) {
         const __half* leaf = tr.data + clampll(st.node, tr.n_nodes) * tr.D;
         float c0, c1, c2;
         if (use_sh) {
@@ -108,7 +130,12 @@ march_kernel(LeafMapTree tr, const float* __restrict__ cen,
     active = active && t < tm;
   }
 
-  const float alpha = stopped ? 1.0f : (ray_miss ? 0.0f : 1.0f - T);
+  float alpha = stopped ? 1.0f : (ray_miss ? 0.0f : 1.0f - T);
+  if (render_depth) {
+    alpha = 1.0f;
+    const float d0 = fminf(acc0 * 0.3f, 1.0f);
+    acc0 = acc1 = acc2 = (max_dense == 0 || ray_miss) ? 0.0f : d0;
+  }
   if (stopped && max_dense > 0) {
     const float s = 1.0f / (1.0f - T);
     acc0 = acc0 * s;
@@ -120,6 +147,7 @@ march_kernel(LeafMapTree tr, const float* __restrict__ cen,
   nsteps_out[r] = ns;
   nrec_out[r] = nd;
   if (over) atomicAdd(overflow, 1);
+  if (need_votes) votes_store(v, r, sv_out, pv_out);
 }
 
 }  // namespace mnv
@@ -131,7 +159,9 @@ extern "C" int march_launch(
     const void* delta_scale, const void* tmin, const void* tmax,
     const void* miss, const void* basis, int B, int use_sh, float step_size,
     float sigma_thresh, float stop_thresh, int max_dense, int R, void* out,
-    void* nsteps, void* nrec, void* overflow, void* stream) {
+    void* nsteps, void* nrec, void* overflow, const void* counts,
+    int need_votes, int max_depth, int max_sample_count, int render_depth,
+    void* sv, void* pv, void* stream) {
   const int grid = (R + mnv::kBlock - 1) / mnv::kBlock;
   const mnv::LeafMapTree tr{
       static_cast<const int*>(child), n_child,
@@ -146,6 +176,9 @@ extern "C" int march_launch(
       static_cast<const bool*>(miss), static_cast<const float*>(basis), B,
       use_sh, step_size, sigma_thresh, stop_thresh, max_dense, R,
       static_cast<float*>(out), static_cast<int*>(nsteps),
-      static_cast<int*>(nrec), static_cast<int*>(overflow));
+      static_cast<int*>(nrec), static_cast<int*>(overflow),
+      static_cast<const short*>(counts), need_votes, max_depth,
+      max_sample_count, render_depth, static_cast<float*>(sv),
+      static_cast<float*>(pv));
   return static_cast<int>(cudaGetLastError());
 }

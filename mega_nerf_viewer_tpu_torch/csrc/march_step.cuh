@@ -25,9 +25,11 @@ struct LeafMapTree {
   int deep_levels;       // descent levels below L
 };
 
-// What one step found: the leaf's node, its sigma, and the step length.
+// What one step found: the leaf's node, its depth and sigma, and the step
+// length.
 struct MarchStep {
   int node;
+  int depth;
   float sigma;
   float delta_t;
 };
@@ -85,6 +87,7 @@ __device__ __forceinline__ MarchStep march_step(
   const float cube = pow2f(depth);
   MarchStep s;
   s.node = node;
+  s.depth = depth;
   s.sigma = sigma;
   s.delta_t = leaf_exit(px, py, pz, cube, ix, iy, iz) + step_size;
   return s;

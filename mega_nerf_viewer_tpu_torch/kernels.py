@@ -7,9 +7,12 @@ a hash of the sources and flags, and loaded with ``ctypes``.  Every kernel
 is built with ``-fmad=false``: the JAX reference rounds each f32 op
 separately except where the kernels call ``__fmaf_rn`` explicitly, and
 the prepass's ``t`` must be bit-equal to the march's and the collect
-march's.  The four kernels: ``skip_prepass`` (B), ``march`` (A),
-``collect`` (C, the guided collect march) and ``compact_composite`` (D,
-the guided compositor).
+march's.  The seven kernels: ``skip_prepass`` (B), ``march`` (A, with
+votes and depth mode), ``collect`` (C, the guided collect march),
+``compact_composite`` (D, the compact guided compositor), ``exact_march``
+(E, the exact renderer's march with votes and visit marks),
+``exact_collect`` (F, the exact guided collect) and ``padded_composite``
+(G, the padded guided compositor).
 
 Each launch function checks its tensors, allocates the outputs, launches
 on PyTorch's current stream, raises on a non-zero ``cudaGetLastError()``
@@ -33,14 +36,16 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 SOURCES = ("skip_prepass.cu", "march.cu", "collect.cu",
-           "compact_composite.cu")
-HEADERS = ("common.cuh", "march_step.cuh")
+           "compact_composite.cu", "exact_march.cu", "exact_collect.cu",
+           "padded_composite.cu")
+HEADERS = ("common.cuh", "march_step.cuh", "descend_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"skip_prepass": 0, "march": 0, "collect": 0,
-            "compact_composite": 0}
+            "compact_composite": 0, "exact_march": 0, "exact_collect": 0,
+            "padded_composite": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -56,10 +61,11 @@ _SIGNATURES = {
     # child, n_child, data, n_nodes, data_dim, rows, n_cells, level,
     # deep_levels, cen, d, invdir, delta_scale, tmin, tmax, miss, basis,
     # basis_dim, use_sh, step_size, sigma_thresh, stop_thresh, max_dense,
-    # R, out, nsteps, nrec, overflow, stream
+    # R, out, nsteps, nrec, overflow, counts, need_votes, max_depth,
+    # max_sample_count, render_depth, split_vote, sample_vote, stream
     "march_launch": (_P, _L, _P, _L, _I, _P, _L, _I, _I, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _P,
-                     _P, _P, _P),
+                     _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # child, n_child, data, n_nodes, data_dim, rows, n_cells, level,
     # deep_levels, cen, d, invdir, delta_scale, tmin, tmax, miss, S,
     # step_size, sigma_thresh, stop_thresh, R, t_buf, ns, steps, overflow,
@@ -70,6 +76,30 @@ _SIGNATURES = {
     # out, stream
     "compact_composite_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _P, _P),
+    # the exact tree (child, n_child, data, n_nodes, D, counts, N,
+    # max_levels, visited, n_visited), cen, d, invdir, delta_scale, tmin,
+    # tmax, miss, basis, B, use_sh, render_depth, step_size, sigma_thresh,
+    # stop_thresh, max_depth, max_sample_count, max_iters, R, out,
+    # split_vote, sample_vote, steps, t_final, stream
+    "exact_march_launch": (_P, _L, _P, _L, _I, _P, _I, _I, _P, _L,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                           _P),
+    # the exact tree, cen, d, t_final, steps, max_steps, R, stream
+    "exact_visit_tail_launch": (_P, _L, _P, _L, _I, _P, _I, _I, _P, _L,
+                                _P, _P, _P, _P, _P, _I, _P),
+    # the exact tree, cen, d, invdir, delta_scale, tmin, tmax, miss, dirs,
+    # vdirs, cen_world, scale, grid_dim, min_pos, pos_range, S, W,
+    # need_viewdir, has_app, app, step_size, sigma_thresh, stop_thresh,
+    # max_depth, max_sample_count, R, samples, cluster_ids, ns, split_vote,
+    # sample_vote, steps, t_final, stream
+    "exact_collect_launch": (_P, _L, _P, _L, _I, _P, _I, _I, _P, _L,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # res, S, out_dim, z, ns, basis, B, mode, R, out, stream
+    "padded_composite_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P,
+                                _P),
 }
 
 
@@ -222,9 +252,12 @@ def _check_rays(dev, R, cen, d, invdir, delta_scale, tmin, tmax, miss):
 
 
 def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
-          basis, step_size, sigma_thresh, stop_thresh, max_dense, use_sh):
-    """Launch the fused march kernel (csrc/march.cu).  Returns
-    (out [R, 4] f32, overflow count [] i32, nsteps [R] i32, nrec [R] i32)."""
+          basis, step_size, sigma_thresh, stop_thresh, max_dense, use_sh,
+          votes=None, render_depth=False):
+    """Launch the fused march kernel (csrc/march.cu).  ``votes`` =
+    (max_depth, max_sample_count) keeps the split and sample votes.
+    Returns (out [R, 4] f32, overflow count [] i32, nsteps [R] i32, nrec
+    [R] i32[, split_vote, sample_vote [R, 3] f32 with ``votes``])."""
     dev = _cuda_device(d)
     R = d.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -239,8 +272,17 @@ def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
     nsteps = torch.empty((R,), dtype=i32, device=dev)
     nrec = torch.empty((R,), dtype=i32, device=dev)
     overflow = torch.zeros((), dtype=i32, device=dev)
+    sv = pv = None
+    max_depth = max_sc = 0
+    if votes is not None:
+        _check("sample_counts", tree.sample_counts, torch.int16,
+               tuple(tree.sample_counts.shape), dev)
+        sv = torch.empty((R, 3), dtype=f32, device=dev)
+        pv = torch.empty((R, 3), dtype=f32, device=dev)
+        max_depth, max_sc = (int(k) for k in votes)
+    extra = () if votes is None else (sv, pv)
     if R == 0:
-        return out, overflow, nsteps, nrec
+        return (out, overflow, nsteps, nrec) + extra
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.march_launch(
@@ -249,10 +291,14 @@ def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
             miss.data_ptr(), basis.data_ptr(), B, int(use_sh),
             float(step_size), float(sigma_thresh), float(stop_thresh),
             int(max_dense), R, out.data_ptr(), nsteps.data_ptr(),
-            nrec.data_ptr(), overflow.data_ptr(), _stream(dev))
+            nrec.data_ptr(), overflow.data_ptr(),
+            tree.sample_counts.data_ptr(), int(votes is not None), max_depth,
+            max_sc, int(bool(render_depth)),
+            None if sv is None else sv.data_ptr(),
+            None if pv is None else pv.data_ptr(), _stream(dev))
     _raise_on(err, "march")
     LAUNCHES["march"] += 1
-    return out, overflow, nsteps, nrec
+    return (out, overflow, nsteps, nrec) + extra
 
 
 def collect(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
@@ -327,5 +373,188 @@ def compact_composite(res_c, z_c, offs, ns, vdirs_c, basis_dim, use_sh,
     return out
 
 
+def _exact_tree_args(tree, dev, max_levels: int) -> tuple:
+    """Check the tree for the exact kernels; return the leading launch
+    arguments of csrc/descend_step.cuh's ExactTree (child, n_child, data,
+    n_nodes, data_dim, counts, N, max_levels)."""
+    for name, t, dtype in (("child", tree.child, torch.int32),
+                           ("data", tree.data, torch.float16),
+                           ("sample_counts", tree.sample_counts,
+                            torch.int16)):
+        _check(name, t, dtype, tuple(t.shape), dev)
+    return (tree.child.data_ptr(), tree.child.numel(), tree.data.data_ptr(),
+            tree.data.shape[0] * tree.N3, tree.data_dim,
+            tree.sample_counts.data_ptr(), tree.N, int(max_levels))
+
+
+def _visits(tree, dev, track_visit: bool) -> torch.Tensor:
+    """The visit tracker of an exact march: zeros, the root marked when
+    visits are tracked (``render.py:178-180``)."""
+    visited = torch.zeros((tree.max_capacity,), dtype=torch.int32,
+                          device=dev)
+    if track_visit:
+        visited[0] = 1
+    return visited
+
+
+def _visit_tail(lib, tree_args, visited, cen, d, t_final, steps, R, dev):
+    """Mark, for every ray that took fewer steps than the slowest, the
+    chunks above its final position (csrc/exact_march.cu)."""
+    max_steps = steps.max().reshape(1)
+    err = lib.exact_visit_tail_launch(
+        *tree_args, visited.data_ptr(), visited.numel(), cen.data_ptr(),
+        d.data_ptr(), t_final.data_ptr(), steps.data_ptr(),
+        max_steps.data_ptr(), R, _stream(dev))
+    _raise_on(err, "exact_visit_tail")
+
+
+def exact_march(tree, m, opt, track_visit, max_levels, max_iters):
+    """Launch the exact march (csrc/exact_march.cu) from the tree-space
+    setup ``m`` (``accel.MarchInputs``) and, when visits are tracked, its
+    visit tail.  Returns (out [R, 4] f32, split_vote, sample_vote [R, 3]
+    f32, visited [max_capacity] i32, steps [R] i32)."""
+    dev = _cuda_device(m.d)
+    R = m.d.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    B = m.basis.shape[1]
+    _check_rays(dev, R, m.cen, m.d, m.invdir, m.delta_scale, m.tmin, m.tmax,
+                m.miss)
+    _check("basis", m.basis, f32, (R, B), dev)
+    if m.use_sh and 3 * B + 1 > tree.data_dim:
+        raise ValueError(f"basis dim {B} does not fit data_dim "
+                         f"{tree.data_dim}")
+    tree_args = _exact_tree_args(tree, dev, max_levels)
+    visited = _visits(tree, dev, track_visit)
+    out = torch.empty((R, 4), dtype=f32, device=dev)
+    sv = torch.empty((R, 3), dtype=f32, device=dev)
+    pv = torch.empty((R, 3), dtype=f32, device=dev)
+    steps = torch.empty((R,), dtype=i32, device=dev)
+    t_final = torch.empty((R,), dtype=f32, device=dev)
+    if R == 0:
+        return out, sv, pv, visited, steps
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.exact_march_launch(
+            *tree_args, visited.data_ptr() if track_visit else None,
+            visited.numel(), m.cen.data_ptr(), m.d.data_ptr(),
+            m.invdir.data_ptr(), m.delta_scale.data_ptr(), m.tmin.data_ptr(),
+            m.tmax.data_ptr(), m.miss.data_ptr(), m.basis.data_ptr(), B,
+            int(m.use_sh), int(bool(opt.render_depth)), float(m.step_size),
+            float(m.sigma_thresh), float(m.stop_thresh), int(opt.max_depth),
+            int(opt.max_sample_count), int(max_iters), R, out.data_ptr(),
+            sv.data_ptr(), pv.data_ptr(), steps.data_ptr(),
+            t_final.data_ptr(), _stream(dev))
+        _raise_on(err, "exact_march")
+        if track_visit:
+            _visit_tail(lib, tree_args, visited, m.cen, m.d, t_final, steps,
+                        R, dev)
+    LAUNCHES["exact_march"] += 1
+    return out, sv, pv, visited, steps
+
+
+def exact_collect(tree, m, dirs, vdirs, cen_world, grid, opt, track_visit,
+                  max_levels):
+    """Launch the exact guided collect (csrc/exact_collect.cu) from the
+    tree-space setup ``m`` and, when visits are tracked, the visit tail.
+    ``grid`` = (grid_dim i32 [2], min_position f32 [3], pos_range f32 [3])
+    on the card.  Returns (samples [R, S, 1 + dim] f32 with -1 past ns,
+    cluster_ids [R, S] i32 with 0 past ns, ns [R] i32, split_vote,
+    sample_vote [R, 3] f32, visited [max_capacity] i32, steps [R] i32)."""
+    dev = _cuda_device(m.d)
+    R = m.d.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    S = int(opt.max_guided_samples)
+    W = 1 + int(opt.sample_dim)
+    need_viewdir = bool(opt.need_viewdir)
+    has_app = opt.appearance_embedding != -1
+    _check_rays(dev, R, m.cen, m.d, m.invdir, m.delta_scale, m.tmin, m.tmax,
+                m.miss)
+    grid_dim, min_pos, pos_range = grid
+    inputs = [("dirs", dirs, f32, (R, 3)),
+              ("cen_world", cen_world, f32, (3,)),
+              ("scale", tree.scale, f32, (3,)),
+              ("grid_dim", grid_dim, i32, (2,)),
+              ("min_position", min_pos, f32, (3,)),
+              ("pos_range", pos_range, f32, (3,))]
+    if need_viewdir:
+        inputs.append(("vdirs", vdirs, f32, (R, 3)))
+    for name, t, dtype, shape in inputs:
+        _check(name, t, dtype, shape, dev)
+    tree_args = _exact_tree_args(tree, dev, max_levels)
+    visited = _visits(tree, dev, track_visit)
+    # the fills are one coalesced pass each; the kernel writes the records
+    samples = torch.full((R, S, W), -1.0, dtype=f32, device=dev)
+    cids = torch.zeros((R, S), dtype=i32, device=dev)
+    ns = torch.empty((R,), dtype=i32, device=dev)
+    sv = torch.empty((R, 3), dtype=f32, device=dev)
+    pv = torch.empty((R, 3), dtype=f32, device=dev)
+    steps = torch.empty((R,), dtype=i32, device=dev)
+    t_final = torch.empty((R,), dtype=f32, device=dev)
+    if R == 0:
+        return samples, cids, ns, sv, pv, visited, steps
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.exact_collect_launch(
+            *tree_args, visited.data_ptr() if track_visit else None,
+            visited.numel(), m.cen.data_ptr(), m.d.data_ptr(),
+            m.invdir.data_ptr(), m.delta_scale.data_ptr(), m.tmin.data_ptr(),
+            m.tmax.data_ptr(), m.miss.data_ptr(), dirs.data_ptr(),
+            vdirs.data_ptr() if need_viewdir else None,
+            cen_world.data_ptr(), tree.scale.data_ptr(), grid_dim.data_ptr(),
+            min_pos.data_ptr(), pos_range.data_ptr(), S, W,
+            int(need_viewdir), int(has_app),
+            float(opt.appearance_embedding), float(m.step_size),
+            float(m.sigma_thresh), float(m.stop_thresh), int(opt.max_depth),
+            int(opt.max_sample_count), R, samples.data_ptr(),
+            cids.data_ptr(), ns.data_ptr(), sv.data_ptr(), pv.data_ptr(),
+            steps.data_ptr(), t_final.data_ptr(), _stream(dev))
+        _raise_on(err, "exact_collect")
+        if track_visit:
+            _visit_tail(lib, tree_args, visited, m.cen, m.d, t_final, steps,
+                        R, dev)
+    LAUNCHES["exact_collect"] += 1
+    return samples, cids, ns, sv, pv, visited, steps
+
+
+def padded_composite(results, z_vals, ns, basis, mode: int):
+    """Launch the padded compositor (csrc/padded_composite.cu).  ``mode``
+    0 shades by SH from ``basis`` [R, B], 1 is depth mode, 2 takes the raw
+    rgb; ``basis`` is None unless ``mode`` is 0.  Returns rgba [R, 4] f32
+    with alpha 1."""
+    dev = _cuda_device(results)
+    R, S, out_dim = results.shape
+    f32 = torch.float32
+    inputs = [("results", results, f32, (R, S, out_dim)),
+              ("z_vals", z_vals, f32, (R, S)),
+              ("ns", ns, torch.int32, (R,))]
+    B = 0
+    if mode == 0:
+        if basis is None:
+            raise ValueError("an SH composite needs the basis")
+        B = basis.shape[1]
+        inputs.append(("basis", basis, f32, (R, B)))
+        if 3 * B > out_dim:
+            raise ValueError(f"basis dim {B} with out_dim {out_dim}")
+    elif mode not in (1, 2):
+        raise ValueError(f"mode {mode}")
+    elif mode == 2 and out_dim < 3:
+        raise ValueError(f"out_dim {out_dim} < 3")
+    for name, t, dtype, shape in inputs:
+        _check(name, t, dtype, shape, dev)
+    out = torch.empty((R, 4), dtype=f32, device=dev)
+    if R == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.padded_composite_launch(
+            results.data_ptr(), S, out_dim, z_vals.data_ptr(), ns.data_ptr(),
+            None if basis is None else basis.data_ptr(), B, int(mode), R,
+            out.data_ptr(), _stream(dev))
+    _raise_on(err, "padded_composite")
+    LAUNCHES["padded_composite"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "SOURCES", "build", "collect", "compact_composite",
-           "library_path", "march", "reset_launch_counts", "skip_prepass"]
+           "exact_collect", "exact_march", "library_path", "march",
+           "padded_composite", "reset_launch_counts", "skip_prepass"]

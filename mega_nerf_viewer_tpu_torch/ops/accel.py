@@ -39,7 +39,8 @@ from ..options import RenderOptions
 from .fp import fma_f32, pow2_f32, rsqrt_f32
 from .rays import (rodrigues, screen2worlddir, screen2worlddir_indices,
                    sq_norm)
-from .render import _dda_unit_batch, _dda_world_batch, composite_background
+from .render import (_dda_unit_batch, _dda_world_batch, composite_background,
+                     postprocess, vote_state, vote_step)
 from .sh import masked_sh_basis
 from .skip_prepass import EPS_HI, entry_skip_prepass
 
@@ -160,8 +161,8 @@ class FastRenderResult(NamedTuple):
     out: torch.Tensor         # [R, 4] rgba pre-background
     overflow: torch.Tensor    # [] i32 COUNT of rays that exceeded max_dense
     steps: torch.Tensor       # [R] i32 march iterations per ray
-    split_vote: torch.Tensor  # [0, 3] (votes are not ported yet)
-    sample_vote: torch.Tensor  # [0, 3]
+    split_vote: torch.Tensor  # [R, 3] with need_votes, else [0, 3]
+    sample_vote: torch.Tensor  # [R, 3] with need_votes, else [0, 3]
     nrec: torch.Tensor        # [R] i32 dense samples per ray (uncapped)
     skips: torch.Tensor       # [R] i32 prepass entry-skip count
 
@@ -233,6 +234,7 @@ class MarchInputs(NamedTuple):
     sigma_thresh: float
     stop_thresh: float
     use_sh: bool
+    render_depth: bool = False
 
 
 _PER_RAY = ("d", "invdir", "delta_scale", "tmin", "tmax", "miss", "basis")
@@ -271,10 +273,8 @@ def march_inputs(tree: N3Tree, dirs: torch.Tensor, vdirs: torch.Tensor,
                  dyn=None) -> MarchInputs:
     """World rays -> the march's tree-space inputs (``accel.py:399-434``).
     ``dyn`` = [step_size, sigma_thresh, stop_thresh, render_bbox*6]
-    overrides those knobs of ``opt``.  Depth mode is not ported yet."""
-    if opt.render_depth:
-        raise NotImplementedError(
-            "depth mode comes with the exact renderer port")
+    overrides those knobs of ``opt``.  In depth mode the basis is a zero
+    column, as in JAX: nothing is shaded."""
     R = dirs.shape[0]
     dev = dirs.device
     basis_dim = tree.data_format.basis_dim
@@ -290,13 +290,14 @@ def march_inputs(tree: N3Tree, dirs: torch.Tensor, vdirs: torch.Tensor,
         tmax_bg = torch.full((R,), 1e9, dtype=torch.float32, device=dev)
     cen, d, invdir, delta_scale, tmin, tmax, miss = ray_setup(
         tree, dirs, cen_world, render_bbox, tmax_bg)
-    if use_sh:
+    if use_sh and not opt.render_depth:
         basis = masked_sh_basis(basis_dim, vdirs, opt.basis_minmax[0],
                                 opt.basis_minmax[1]).contiguous()
     else:
         basis = torch.zeros((R, 1), dtype=torch.float32, device=dev)
     return MarchInputs(cen, d, invdir, delta_scale, tmin, tmax, miss,
-                       basis, step_size, sigma_thresh, stop_thresh, use_sh)
+                       basis, step_size, sigma_thresh, stop_thresh, use_sh,
+                       bool(opt.render_depth))
 
 
 def _prepass(m: MarchInputs, skip_table: Optional[torch.Tensor]):
@@ -310,16 +311,19 @@ def _prepass(m: MarchInputs, skip_table: Optional[torch.Tensor]):
 
 
 def fused_march(tree: N3Tree, leaf_map: LeafMap, m: MarchInputs,
-                max_dense: int, chunk_size: int = 0):
+                max_dense: int, chunk_size: int = 0, votes=None):
     """The march from ``m``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns (out [R, 4], overflow count [] i32,
-    nsteps [R] i32, nrec [R] i32)."""
+    version for CPU tensors.  ``votes`` = (max_depth, max_sample_count)
+    asks for the split and sample votes.  Returns (out [R, 4], overflow
+    count [] i32, nsteps [R] i32, nrec [R] i32[, split_vote, sample_vote
+    [R, 3] with ``votes``])."""
     args = (tree, leaf_map, m.cen, m.d, m.invdir, m.delta_scale, m.tmin,
             m.tmax, m.miss, m.basis, m.step_size, m.sigma_thresh,
             m.stop_thresh, int(max_dense), m.use_sh)
+    kw = dict(votes=votes, render_depth=m.render_depth)
     if m.d.device.type == "cpu":
-        return render_rays_fast_reference(*args, chunk_size=chunk_size)
-    return kernels.march(*args)
+        return render_rays_fast_reference(*args, chunk_size=chunk_size, **kw)
+    return kernels.march(*args, **kw)
 
 
 def render_rays_fast(tree: N3Tree,
@@ -342,40 +346,50 @@ def render_rays_fast(tree: N3Tree,
     :func:`..skip_prepass.build_skip_table`, valid for this
     ``sigma_thresh``) runs the entry-skip prepass first.  ``chunk_size``
     bounds the plain version's working set; the kernel has no tiles.
-    Votes and depth mode are not ported yet and raise.
+    ``need_votes`` adds the split and sample votes of the exact march
+    (one more sample-count read per step); vote frames take no skip table
+    in the viewer, since the fallback vote inspects empty leaves.
     """
-    if need_votes:
-        raise NotImplementedError(
-            "votes come with the exact renderer port")
     m, skips = _prepass(march_inputs(tree, dirs, vdirs, cen_world, opt,
                                      tmax_bg, dyn), skip_table)
-    out, overflow, nsteps, nrec = fused_march(tree, leaf_map, m, max_dense,
-                                              chunk_size)
-    empty = torch.zeros((0, 3), dtype=torch.float32, device=dirs.device)
-    return FastRenderResult(out, overflow, nsteps, empty, empty, nrec, skips)
+    res = fused_march(tree, leaf_map, m, max_dense, chunk_size,
+                      _vote_knobs(opt) if need_votes else None)
+    out, overflow, nsteps, nrec = res[:4]
+    if need_votes:
+        sv, pv = res[4:]
+    else:
+        sv = pv = torch.zeros((0, 3), dtype=torch.float32, device=dirs.device)
+    return FastRenderResult(out, overflow, nsteps, sv, pv, nrec, skips)
+
+
+def _vote_knobs(opt: RenderOptions) -> tuple:
+    return (int(opt.max_depth), int(opt.max_sample_count))
 
 
 def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
                                tmin, tmax, miss, basis, step_size,
                                sigma_thresh, stop_thresh, max_dense, use_sh,
-                               chunk_size: int = 0):
+                               chunk_size: int = 0, votes=None,
+                               render_depth: bool = False):
     """The march as plain torch ops: the JAX while loop's step
     (``accel.py:468-545``) over all rays with masks, a per-ray record
-    buffer of up to ``max_dense`` (node, weight) pairs, then deferred
-    shading (``:594-611``).  Returns (out [R, 4], overflow count [] i32,
-    nsteps [R] i32, nrec [R] i32)."""
+    buffer of up to ``max_dense`` (node or, in depth mode, t; weight)
+    pairs, then deferred shading (``:565-611``).  ``votes`` =
+    (max_depth, max_sample_count) keeps the exact march's split and sample
+    votes (``:487-513``).  Returns (out [R, 4], overflow count [] i32,
+    nsteps [R] i32, nrec [R] i32[, split_vote, sample_vote [R, 3]])."""
     R = d.shape[0]
     if chunk_size and R > chunk_size:
         parts = [render_rays_fast_reference(
             tree, leaf_map, cen, d[s], invdir[s], delta_scale[s], tmin[s],
             tmax[s], miss[s], basis[s], step_size, sigma_thresh,
-            stop_thresh, max_dense, use_sh)
+            stop_thresh, max_dense, use_sh, votes=votes,
+            render_depth=render_depth)
             for s in (slice(i, i + chunk_size)
                       for i in range(0, R, chunk_size))]
-        return (torch.cat([p[0] for p in parts]),
-                sum(p[1] for p in parts).to(torch.int32),
-                torch.cat([p[2] for p in parts]),
-                torch.cat([p[3] for p in parts]))
+        return tuple(sum(p[1] for p in parts).to(torch.int32) if k == 1
+                     else torch.cat([p[k] for p in parts])
+                     for k in range(len(parts[0])))
     dev = d.device
     f32, i32 = torch.float32, torch.int32
     N, N3 = tree.N, tree.N3
@@ -383,6 +397,7 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
     child_flat = tree.child.reshape(-1)
     data_flat = tree.data.reshape(-1, D)
     sigma_flat = data_flat[:, D - 1]
+    counts_flat = tree.sample_counts.reshape(-1)
     step = torch.tensor(step_size, dtype=f32, device=dev)
     s_thresh = torch.tensor(sigma_thresh, dtype=f32, device=dev)
     t_thresh = torch.tensor(stop_thresh, dtype=f32, device=dev)
@@ -390,8 +405,10 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
     md = max_dense
     nodes_buf = torch.zeros((R, md), dtype=torch.int64, device=dev)
     w_buf = torch.zeros((R, md), dtype=f32, device=dev)
+    t_buf = torch.zeros((R, md), dtype=f32, device=dev)
     nd = torch.zeros((R,), dtype=i32, device=dev)
     nsteps = torch.zeros((R,), dtype=i32, device=dev)
+    vs = vote_state(R, *votes, dev) if votes is not None else None
     t = tmin.clone()
     T = torch.ones((R,), dtype=f32, device=dev)
     stopped = torch.zeros((R,), dtype=torch.bool, device=dev)
@@ -411,11 +428,18 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
         dense = active & (sigma > s_thresh)
         att = torch.exp(-delta_t * delta_scale * sigma)
         weight = T * (1.0 - att)
+        if vs is not None:
+            sc = counts_flat[node.long().clamp(0, counts_flat.numel() - 1)]
+            vote_step(*votes, vs, active, dense, weight, depth,
+                      torch.div(node, N3, rounding_mode="floor"),
+                      node % N3, sc.to(i32))
         overflow = overflow | (dense & (nd >= md))
         if md > 0:
             rec = dense & (nd < md)
-            nodes_buf[ray[rec], nd[rec].long()] = node[rec].long()
-            w_buf[ray[rec], nd[rec].long()] = weight[rec]
+            slot = nd[rec].long()
+            nodes_buf[ray[rec], slot] = node[rec].long()
+            w_buf[ray[rec], slot] = weight[rec]
+            t_buf[ray[rec], slot] = t[rec]
         nd = nd + dense.to(i32)
         T = torch.where(dense, T * att, T)
         stop_now = dense & (T < t_thresh)
@@ -423,12 +447,19 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
         t = torch.where(active, t + delta_t, t)
         active = active & ~stop_now & (t < tmax)
 
-    alpha = torch.where(stopped, torch.ones_like(T),
-                        torch.where(miss, torch.zeros_like(T), 1.0 - T))
+    zero = torch.zeros((), dtype=f32, device=dev)
+    valid = torch.arange(md, device=dev)[None, :] < nd[:, None]
     if md == 0:
-        rgb = torch.zeros((R, 3), dtype=f32, device=dev)
+        # nothing recorded: rgb 0; depth mode writes alpha 1
+        out = torch.zeros((R, 4), dtype=f32, device=dev)
+        out[:, 3] = 1.0 if render_depth else torch.where(
+            stopped, torch.ones_like(T),
+            torch.where(miss, torch.zeros_like(T), 1.0 - T))
+    elif render_depth:
+        d0 = torch.where(valid, w_buf * t_buf, zero).sum(1)
+        acc = torch.stack([d0, zero.expand(R), zero.expand(R)], 1)
+        out = postprocess(acc, T, stopped, miss, True)
     else:
-        valid = torch.arange(md, device=dev)[None, :] < nd[:, None]
         leaf = data_flat[nodes_buf.clamp(0, data_flat.shape[0] - 1)].to(f32)
         if use_sh:
             B = basis.shape[1]
@@ -438,11 +469,12 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
         else:
             rgb_s = leaf[..., :3]
         rgb = torch.where(valid[..., None], w_buf[..., None] * rgb_s,
-                          torch.zeros((), dtype=f32, device=dev)).sum(1)
-        scale = torch.where(stopped, 1.0 / (1.0 - T), torch.ones_like(T))
-        rgb = rgb * scale[:, None]
-    out = torch.cat([rgb, alpha[:, None]], dim=1)
-    return (out, overflow.sum().to(i32), nsteps, nd)
+                          zero).sum(1)
+        out = postprocess(rgb, T, stopped, miss, False)
+    res = (out, overflow.sum().to(i32), nsteps, nd)
+    if vs is not None:
+        res = res + (vs["split_vote"], vs["sample_vote"])
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -454,14 +486,16 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                 skip_table: Optional[torch.Tensor],
                 *, seg_counts: tuple, chunk_size: int,
                 return_hints: bool, group: int = 1,
-                sorted_output: bool = False):
+                sorted_output: bool = False, need_votes: bool = False):
     """One fast frame: raygen in ``perm`` order -> setup -> (prepass) ->
     march per segment -> unpermute -> background composite.  ``seg_counts`` =
     ((n_chunks, max_dense), ...); the frame is padded to whole chunks
     with copies of the last ray.  ``group`` > 1 asserts group-structured
     (perm, inv) (``order_from_hints(..., group=g)``) and unpermutes
     [R/g, 4g] rows.  ``sorted_output`` leaves the rows in ``perm`` order
-    (the composite is elementwise, so that is bit-identical)."""
+    (the composite is elementwise, so that is bit-identical).
+    ``need_votes`` adds ``split_vote`` and ``sample_vote`` in pixel
+    order."""
     dev = tree.device
     R = inv.shape[0]
     n_total = sum(c for c, _ in seg_counts) * chunk_size
@@ -478,7 +512,8 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     m, skips = _prepass(march_inputs(tree, dirs_p, vdirs_p, cen, opt),
                         skip_table)
 
-    outs, ovs, steps, nrec = [], [], [], []
+    outs, ovs, steps, nrec, svs, pvs = [], [], [], [], [], []
+    votes = _vote_knobs(opt) if need_votes else None
     off = 0
     for c_chunks, md in seg_counts:
         if c_chunks == 0:
@@ -486,9 +521,12 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
             ovs.append(torch.zeros((), dtype=torch.int32, device=dev))
             continue
         sl = slice(off, off + c_chunks * chunk_size)
-        out, overflow, st, nr = fused_march(tree, leaf_map,
-                                            slice_rays(m, sl), md,
-                                            chunk_size)
+        res = fused_march(tree, leaf_map, slice_rays(m, sl), md,
+                          chunk_size, votes)
+        out, overflow, st, nr = res[:4]
+        if need_votes:
+            svs.append(res[4])
+            pvs.append(res[5])
         outs.append(out)
         ovs.append(overflow)
         steps.append(st)
@@ -505,6 +543,9 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
         out = out[inv]
     ret = dict(img=composite_background(out, opt),
                seg_overflow=torch.stack(ovs))
+    if need_votes:
+        ret["split_vote"] = torch.cat(svs, 0)[:R][inv]
+        ret["sample_vote"] = torch.cat(pvs, 0)[:R][inv]
     if return_hints:
         ret["steps"] = torch.cat(steps, 0)[:R][inv]
         ret["nrec"] = torch.cat(nrec, 0)[:R][inv]
@@ -594,13 +635,15 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
                       order: Optional[tuple] = None,
                       return_nrec: bool = False,
                       skip_table: Optional[torch.Tensor] = None,
-                      return_skips: bool = False):
+                      return_skips: bool = False,
+                      need_votes: bool = False):
     """Full fast frame at one ``max_dense`` budget.
 
     Rays go in ``order`` = (perm, inv), or else in square pixel blocks of
     ``block``.  Ordering only affects speed; pixels are identical.
-    Returns ([H, W, 4] f32, overflow count, steps [H*W] i32) and, when
-    asked, nrec and then skips, all in pixel order."""
+    Returns ([H, W, 4] f32, overflow count, steps [H*W] i32) and then, as
+    asked, (split_vote, sample_vote [H*W, 3]) with ``need_votes``, nrec
+    and skips, all in pixel order."""
     w, h = camera.width, camera.height
     R = w * h
     dev = tree.device
@@ -610,9 +653,12 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
         n_chunks = (R + chunk_size - 1) // chunk_size
         res = _frame_core(tree, leaf_map, perm, inv, camera, opt,
                           skip_table, seg_counts=((n_chunks, max_dense),),
-                          chunk_size=chunk_size, return_hints=True)
+                          chunk_size=chunk_size, return_hints=True,
+                          need_votes=need_votes)
         img, overflow = res["img"], res["seg_overflow"][0]
         steps, nrec, skips = res["steps"], res["nrec"], res["skips"]
+        votes = (res["split_vote"], res["sample_vote"]) if need_votes \
+            else ()
     else:
         transform = torch.as_tensor(camera.transform, dtype=torch.float32,
                                     device=dev)
@@ -620,11 +666,13 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
                                     camera.cy, transform)
         vdirs = rodrigues(opt.rot_dirs, dirs)
         res = render_rays_fast(tree, leaf_map, dirs, vdirs, cen, opt,
-                               max_dense=max_dense, skip_table=skip_table)
+                               max_dense=max_dense, skip_table=skip_table,
+                               need_votes=need_votes)
         img = composite_background(res.out, opt)
         overflow, steps, nrec, skips = (res.overflow, res.steps, res.nrec,
                                         res.skips)
-    ret = [img.reshape(h, w, 4), overflow, steps]
+        votes = (res.split_vote, res.sample_vote) if need_votes else ()
+    ret = [img.reshape(h, w, 4), overflow, steps, *votes]
     if return_nrec:
         ret.append(nrec)
     if return_skips:
@@ -666,7 +714,8 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
                                 skip_table: Optional[torch.Tensor] = None,
                                 group: int = 1,
                                 return_hints: bool = False,
-                                sorted_output: bool = False):
+                                sorted_output: bool = False,
+                                need_votes: bool = False):
     """Record-sorted segmented fast frame.
 
     ``order`` comes from :func:`order_from_hints`; each contiguous ray
@@ -676,8 +725,9 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
 
     Returns (img [H, W, 4] — or flat [R, 4] rows in ``perm`` order when
     ``sorted_output``, so ``img[inv]`` is the pixel-order frame —,
-    seg_overflow i32 counts [n_segments][, steps, nrec, skips in pixel
-    order when ``return_hints``]).
+    seg_overflow i32 counts [n_segments][, split_vote, sample_vote when
+    ``need_votes``][, steps, nrec, skips when ``return_hints``]); votes and
+    hints in pixel order.
     """
     w, h = camera.width, camera.height
     R = w * h
@@ -689,20 +739,26 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
             tree, leaf_map, camera, opt,
             max_dense=max(md for _, md in segments), chunk_size=chunk_size,
             order=order, skip_table=skip_table, return_nrec=True,
-            return_skips=True)
+            return_skips=True, need_votes=need_votes)
         img, overflow = res[0], res[1]
         if sorted_output:
             img = img.reshape(R, 4)[perm]
         out = (img, overflow.expand(len(segments)))
-        return out + tuple(res[2:]) if return_hints else out
+        if need_votes:
+            out = out + tuple(res[3:5])
+        if return_hints:
+            out = out + (res[2], res[-2], res[-1])
+        return out
     res = _frame_core(
         tree, leaf_map, perm, inv, camera, opt, skip_table,
         seg_counts=segment_chunks(n_chunks, segments, n_rays=R,
                                   chunk_size=chunk_size),
         chunk_size=chunk_size, return_hints=return_hints, group=group,
-        sorted_output=sorted_output)
+        sorted_output=sorted_output, need_votes=need_votes)
     img = res["img"] if sorted_output else res["img"].reshape(h, w, 4)
     out = (img, res["seg_overflow"])
+    if need_votes:
+        out = out + (res["split_vote"], res["sample_vote"])
     if return_hints:
         out = out + (res["steps"], res["nrec"], res["skips"])
     return out

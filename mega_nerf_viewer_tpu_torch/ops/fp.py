@@ -50,6 +50,16 @@ def pow2_f32(depth: torch.Tensor) -> torch.Tensor:
     return ((depth.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
+def ipow_f32(n: int, e: torch.Tensor) -> torch.Tensor:
+    """``n ** e`` as f32 for an integer base ``n`` and integer ``e``,
+    rounded once (exact whenever the power is an f32; the kernels compute
+    it the same way).  XLA:CPU's ``power`` is exact at these arguments."""
+    if n == 2:
+        return pow2_f32(e)
+    base = torch.full((), float(n), dtype=torch.float64, device=e.device)
+    return torch.pow(base, e.to(torch.float64)).float()
+
+
 def rsqrt_f32(s: torch.Tensor) -> torch.Tensor:
     """``1 / sqrt(s)`` of f32 ``s``, rounded once to f32 (from float64)."""
     return torch.rsqrt(s.double()).float()

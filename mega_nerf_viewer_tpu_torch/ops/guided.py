@@ -24,13 +24,26 @@ mode, ``cuda_renderer.cpp:107-139``):
     :func:`composite_results_compact` from the frame's own view
     directions, gathered per sample.
 
-The exact collector (``collect_samples``), the padded cache and depth mode
-come with the exact renderer port.
+and the exact half (``guided.py:48-240``, ``:1032-1066``, ``:1144-1151``),
+which a refinement session runs:
+
+  * :func:`collect_samples` — the exact collect: the exact march's root
+    descent per step, the split and sample votes and the visit marks,
+    recording up to S samples per ray as padded ``[R, S, 1 + dim]`` rows
+    ``[z, x, y, z, (view dir), (appearance)]`` with cluster ids.  On a
+    CUDA tensor the march is ``csrc/exact_collect.cu`` (the descent of
+    ``csrc/descend_step.cuh``, shared with the exact march), on a CPU
+    tensor :func:`exact_collect_reference`.
+  * :func:`collect_and_query` — the exact collect, then the MLP on the
+    valid samples, scattered back into the padded cache.
+  * :func:`composite_frame` on a padded cache — the padded compositor
+    (``ops/padded_composite.py``, kernel ``csrc/padded_composite.cu``),
+    with depth mode.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,24 +56,27 @@ from .accel import (LeafMap, MarchInputs, _f32, class_ladder, leaf_lookup,
                     ray_setup, segment_chunks, slice_rays)
 from .compact_composite import (composite_results_compact_kernel,
                                 composite_results_compact_reference)
-from .fp import fma_f32, pow2_f32, rsqrt_f32
+from .fp import fma_f32, ipow_f32, pow2_f32, rsqrt_f32
+from .padded_composite import composite_results_padded
 from .rays import rodrigues, screen2worlddir, sq_norm
-from .render import _dda_unit_batch
+from .render import (DEFAULT_MAX_LEVELS, RenderResult, _dda_unit_batch,
+                     _descend, vote_state, vote_step)
 from .skip_prepass import EPS_HI, entry_skip_prepass
 
 
 def collect_inputs(tree: N3Tree, dirs: torch.Tensor, cen_world,
                    opt: RenderOptions,
-                   skip_table: Optional[torch.Tensor] = None
-                   ) -> MarchInputs:
-    """The collect's per-ray setup (``guided.py:382-393``): the render
-    march's setup without a background clamp, then the entry-skip prepass
-    when ``skip_table`` is given (skipped cells lie below
-    ``sigma_thresh``, so the records are the same).  The collect shades
-    nothing: ``basis`` is None and ``use_sh`` false."""
+                   skip_table: Optional[torch.Tensor] = None,
+                   tmax_bg: Optional[torch.Tensor] = None) -> MarchInputs:
+    """The collects' per-ray setup (``guided.py:382-393``; the exact
+    collect's ``:81-91`` adds the background clamp ``tmax_bg``): the render
+    march's setup, then the entry-skip prepass when ``skip_table`` is
+    given (skipped cells lie below ``sigma_thresh``, so the records are
+    the same).  The collect shades nothing: ``basis`` is None and
+    ``use_sh`` false."""
     step_size = _f32(opt.step_size)
     cen, d, invdir, ds, tmin, tmax, miss = ray_setup(
-        tree, dirs, cen_world, opt.render_bbox)
+        tree, dirs, cen_world, opt.render_bbox, tmax_bg)
     if skip_table is not None:
         tmin, _ = entry_skip_prepass(skip_table, cen, d, invdir, tmin, tmax,
                                      ~miss, step_size)
@@ -524,15 +540,24 @@ def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
     (``vdirs_sig`` matches this camera and ``rot_dirs``) goes to the
     compact compositor (the kernel on the card); any other cache to
     :func:`_composite_frame_compact`, which shades with this frame's view
-    directions.  The padded cache and depth mode raise
-    ``NotImplementedError``: they come with the exact renderer port."""
+    directions.  A padded cache (``collect_and_query``) goes to the padded
+    compositor with this frame's view directions (``guided.py:1144-1151``),
+    in depth mode too.  Depth mode on a compact cache is not ported yet
+    and raises."""
+    fmt_sh = tree.data_format.format == "SH"
     if "results_c" not in cache:
-        raise NotImplementedError(
-            "the padded guided cache comes with the exact renderer port")
+        transform = torch.as_tensor(camera.transform, dtype=torch.float32,
+                                    device=cache["results"].device)
+        dirs, _ = screen2worlddir(camera.width, camera.height, camera.fx,
+                                  camera.fy, camera.cx, camera.cy, transform)
+        vdirs = rodrigues(opt.rot_dirs, dirs)
+        out = composite_results(cache["results"], cache["z_vals"],
+                                cache["num_samples"], vdirs, opt,
+                                tree.data_format.basis_dim, fmt_sh)
+        return out.reshape(camera.height, camera.width, 4)
     if opt.render_depth:
         raise NotImplementedError(
-            "depth mode comes with the exact renderer port")
-    fmt_sh = tree.data_format.format == "SH"
+            "depth mode on the compact guided cache is not ported yet")
     basis_dim = tree.data_format.basis_dim
     # a sorted-order cache carries the pixel restore; its per-ray inputs
     # must use the sorted counts
@@ -551,3 +576,167 @@ def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
         cache["results_c"], cache["z_c"], cache["ray_of_p"], cache["offs"],
         ns_comp, camera, opt, basis_dim, fmt_sh,
         perm=cache.get("order_perm"), inv=inv)
+
+
+# ----------------------------------------------------------------------
+# The exact collect and the padded cache
+# ----------------------------------------------------------------------
+class GuidedSamples(NamedTuple):
+    samples: torch.Tensor      # [R, S, 1+dim] f32: z, xyz, (vdir), (app)
+    cluster_ids: torch.Tensor  # [R, S] i32
+    num_samples: torch.Tensor  # [R] i32
+    split_vote: torch.Tensor   # [R, 3]
+    sample_vote: torch.Tensor  # [R, 3]
+    visited: torch.Tensor      # [max_capacity] i32
+
+
+def exact_collect_reference(tree: N3Tree, m: MarchInputs,
+                            dirs: torch.Tensor, vdirs: torch.Tensor,
+                            cen_world: torch.Tensor, grid, opt: RenderOptions,
+                            track_visit: bool = False,
+                            max_levels: int = DEFAULT_MAX_LEVELS):
+    """The exact collect as plain torch ops: the JAX while loop
+    (``guided.py:113-183``) over all rays with masks.  ``m`` is the
+    tree-space setup, ``dirs``/``vdirs``/``cen_world`` the world rays the
+    records are built from, ``grid`` = (grid_dim, min_position,
+    pos_range).  Returns (samples [R, S, 1+dim] f32 (-1 fill), cluster_ids
+    [R, S] i32, ns [R] i32, split_vote, sample_vote [R, 3], visited
+    [max_capacity] i32, steps [R] i32)."""
+    N, N3 = tree.N, tree.N3
+    D = tree.data_dim
+    R = m.d.shape[0]
+    S = int(opt.max_guided_samples)
+    dev = m.d.device
+    f32, i32 = torch.float32, torch.int32
+    child_flat = tree.child.reshape(-1)
+    sigma_flat = tree.data.reshape(-1, D)[:, D - 1]
+    counts_flat = tree.sample_counts.reshape(-1)
+    n_nodes = sigma_flat.numel()
+    step = torch.tensor(m.step_size, dtype=f32, device=dev)
+    s_thresh = torch.tensor(m.sigma_thresh, dtype=f32, device=dev)
+    t_thresh = torch.tensor(m.stop_thresh, dtype=f32, device=dev)
+
+    samples = torch.full((R, S, 1 + opt.sample_dim), -1.0, dtype=f32,
+                         device=dev)
+    cluster_ids = torch.zeros((R, S), dtype=i32, device=dev)
+    ns = torch.zeros((R,), dtype=i32, device=dev)
+    steps = torch.zeros((R,), dtype=i32, device=dev)
+    votes = vote_state(R, opt.max_depth, opt.max_sample_count, dev)
+    visited = torch.zeros((tree.max_capacity,), dtype=i32, device=dev)
+    if track_visit:
+        visited[0] = 1
+    t = m.tmin.clone()
+    T = torch.ones((R,), dtype=f32, device=dev)
+    active = ~m.miss & (t < m.tmax)
+    ray = torch.arange(R, device=dev)
+    while bool(active.any()):
+        steps = steps + active.to(i32)
+        pos = fma_f32(t[:, None], m.d, m.cen[None, :])
+        frac, chunk, cidx, depth = _descend(
+            child_flat, pos, N, max_levels,
+            visited if track_visit else None)
+        node = (chunk * N3 + cidx).long().clamp(0, n_nodes - 1)
+        cube = ipow_f32(N, depth)
+        delta_t = _dda_unit_batch(frac, m.invdir) / cube + step
+        sigma = sigma_flat[node].to(f32)
+        dense = sigma > s_thresh
+        att = torch.exp(-delta_t * m.delta_scale * sigma)
+        weight = T * (1.0 - att)
+        sc = counts_flat[node].to(i32)
+        vote_step(opt.max_depth, opt.max_sample_count, votes, active, dense,
+                  weight, depth, chunk, cidx, sc)
+        record = active & dense & (ns < S)
+        r = ray[record]
+        if r.numel():
+            z = torch.sqrt(sq_norm((t[r, None] * m.d[r]) / tree.scale[None]))
+            pos_w = fma_f32(dirs[r], z[:, None], cen_world[None, :])
+            cols = [z[:, None], pos_w]
+            if opt.need_viewdir:
+                cols.append(vdirs[r])
+            if opt.appearance_embedding != -1:
+                cols.append(torch.full((r.numel(), 1),
+                                       float(opt.appearance_embedding),
+                                       dtype=f32, device=dev))
+            slot = ns[r].long()
+            samples[r, slot] = torch.cat(cols, -1)
+            cluster_ids[r, slot] = cluster_ids_from_yz(
+                pos_w[:, 1], pos_w[:, 2], *grid)
+        ns = ns + record.to(i32)
+        T = torch.where(active & dense, T * att, T)
+        stop_now = active & dense & (T < t_thresh)
+        t = torch.where(active, t + delta_t, t)
+        active = active & ~stop_now & (t < m.tmax)
+    return (samples, cluster_ids, ns, votes["split_vote"],
+            votes["sample_vote"], visited, steps)
+
+
+def exact_collect(tree: N3Tree, m: MarchInputs, dirs, vdirs, cen_world,
+                  grid, opt: RenderOptions, track_visit: bool = False,
+                  max_levels: int = DEFAULT_MAX_LEVELS):
+    """The exact collect from the tree-space setup ``m``: kernel F for
+    CUDA tensors, the plain version for CPU tensors; the returns of
+    :func:`exact_collect_reference`."""
+    if m.d.device.type == "cpu":
+        return exact_collect_reference(tree, m, dirs, vdirs, cen_world,
+                                       grid, opt, track_visit, max_levels)
+    return kernels.exact_collect(tree, m, dirs, vdirs, cen_world, grid, opt,
+                                 track_visit, max_levels)
+
+
+def collect_samples(tree: N3Tree, dirs: torch.Tensor, vdirs: torch.Tensor,
+                    cen_world, grid_dim, min_position, pos_range,
+                    opt: RenderOptions, tmax_bg=None,
+                    track_visit: bool = False,
+                    max_levels: int = DEFAULT_MAX_LEVELS) -> GuidedSamples:
+    """Traversal-only exact march recording per-ray guided samples
+    (``guided.py:60-192``)."""
+    dev = dirs.device
+    cen_world = torch.as_tensor(cen_world, dtype=torch.float32, device=dev)
+    grid = (torch.as_tensor(grid_dim, device=dev).to(torch.int32),
+            torch.as_tensor(min_position, device=dev).to(torch.float32),
+            torch.as_tensor(pos_range, device=dev).to(torch.float32))
+    if tmax_bg is None:
+        tmax_bg = torch.full((dirs.shape[0],), 1e9, dtype=torch.float32,
+                             device=dev)
+    m = collect_inputs(tree, dirs, cen_world, opt, tmax_bg=tmax_bg)
+    res = exact_collect(tree, m, dirs, vdirs, cen_world, grid, opt,
+                        track_visit, max_levels)
+    return GuidedSamples(*res[:6])
+
+
+# the padded cache's compositor under its JAX name (``guided.py:196-240``)
+composite_results = composite_results_padded
+
+
+def collect_and_query(tree: N3Tree, model, camera, opt: RenderOptions,
+                      track_visit: bool = False):
+    """The exact collect, then the MLP over the valid samples
+    (``guided.py:1032-1066``; reference ``cuda_renderer.cpp:107-134``).
+    The compaction to the valid samples and the scatter back run on the
+    device.  Returns (cache dict with ``results`` [R, S, out_dim],
+    ``z_vals`` [R, S], ``num_samples`` [R]; RenderResult with the votes
+    and visit marks)."""
+    dev = tree.device
+    transform = torch.as_tensor(camera.transform, dtype=torch.float32,
+                                device=dev)
+    dirs, cen = screen2worlddir(camera.width, camera.height, camera.fx,
+                                camera.fy, camera.cx, camera.cy, transform)
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+    col = collect_samples(tree, dirs, vdirs, cen, model.grid_dim,
+                          model.min_position, model.range, opt,
+                          track_visit=track_visit)
+    R, S = col.cluster_ids.shape
+    valid = torch.arange(S, device=dev)[None, :] < col.num_samples[:, None]
+    flat_idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    flat_samples = col.samples.reshape(R * S, -1)[flat_idx]
+    res = model.query_device(col.cluster_ids.reshape(-1)[flat_idx],
+                             flat_samples[:, 1:])
+    padded = torch.zeros((R * S, model.output_dim), dtype=torch.float32,
+                         device=dev)
+    padded[flat_idx] = res
+    cache = dict(results=padded.reshape(R, S, model.output_dim),
+                 z_vals=col.samples[..., 0].contiguous(),
+                 num_samples=col.num_samples)
+    rres = RenderResult(torch.zeros((R, 4), dtype=torch.float32, device=dev),
+                        col.split_vote, col.sample_vote, col.visited)
+    return cache, rres

@@ -327,12 +327,22 @@ def test_composite_route_gate_on_viewdir_change():
 
 
 def test_composite_frame_not_ported_yet(scene, unordered):
+    """Depth mode on the compact cache is still not ported and raises; the
+    padded cache, which raised before the refinement slice, now goes to
+    the padded compositor and matches JAX's frame on JAX's own cache."""
     s = scene
     _, p = unordered
     with pytest.raises(NotImplementedError):
         PG.composite_frame(s["pt"], s["pcam"],
                            s["popt"].replace(render_depth=True), p)
-    padded = dict(results=p["results_c"], z_vals=p["z_c"],
-                  num_samples=p["num_samples"])
-    with pytest.raises(NotImplementedError):
-        PG.composite_frame(s["pt"], s["pcam"], s["popt"], padded)
+    jc, _ = JG.collect_and_query(s["jt"], s["jm"], s["jcam"], s["opt"])
+    padded = {k: torch.tensor(np.asarray(v)) for k, v in jc.items()}
+    for depth in (False, True):
+        want = np.asarray(JG.composite_frame(
+            s["jt"], s["jcam"], s["opt"].replace(render_depth=depth), jc))
+        got = PG.composite_frame(s["pt"], s["pcam"],
+                                 s["popt"].replace(render_depth=depth),
+                                 padded)
+        err = float(np.abs(got.numpy() - want).max())
+        print(f"padded frame (depth {depth}): max abs diff {err:.3e}")
+        assert err <= PIX_TOL

@@ -21,6 +21,9 @@ def test_import_leaves_out_jax():
             "mega_nerf_viewer_tpu_torch.ops.accel, "
             "mega_nerf_viewer_tpu_torch.ops.guided, "
             "mega_nerf_viewer_tpu_torch.ops.compact_composite, "
+            "mega_nerf_viewer_tpu_torch.ops.padded_composite, "
+            "mega_nerf_viewer_tpu_torch.ops.refine, "
+            "mega_nerf_viewer_tpu_torch.ops.render, "
             "mega_nerf_viewer_tpu_torch.models\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
@@ -48,6 +51,9 @@ def test_no_source_imports_jax():
     names = {os.path.relpath(p, PORT) for p in srcs}
     assert {os.path.join("ops", "guided.py"),
             os.path.join("ops", "compact_composite.py"),
+            os.path.join("ops", "padded_composite.py"),
+            os.path.join("ops", "refine.py"),
+            os.path.join("ops", "render.py"),
             os.path.join("models", "meganerf.py")} <= names
     for path in srcs:
         with open(path) as f:
@@ -127,3 +133,29 @@ def test_kernel_library_path_is_in_checkout():
     assert str(p).startswith(os.path.join(REPO, "build", "kernels"))
     assert "-fmad=false" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_exact_kernels_refuse_cpu_tensors():
+    """Kernels E, F and G take CUDA tensors only; the entry points run
+    their plain versions on CPU tensors and launch nothing."""
+    import numpy as np
+    import mega_nerf_viewer_tpu_torch as P
+    from mega_nerf_viewer_tpu_torch import kernels
+    from mega_nerf_viewer_tpu_torch.ops import accel, guided
+    tree = P.sphere_tree(depth=2, device="cpu")
+    opt = P.RenderOptions(max_guided_samples=4)
+    d = torch.nn.functional.normalize(torch.randn(4, 3), dim=1)
+    cen = torch.tensor([-1.5, 0.1, 1.4])
+    m = accel.march_inputs(tree, d, d, cen, opt)
+    grid = (torch.tensor([1, 1], dtype=torch.int32), torch.zeros(3),
+            torch.ones(3))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.exact_march(tree, m, opt, True, 20, 0)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.exact_collect(tree, guided.collect_inputs(
+            tree, d, cen, opt), d, d, cen, grid, opt, True, 20)
+    P.render_rays(tree, d, d, cen, opt, track_visit=True)
+    P.collect_samples(tree, d, d, cen, np.array([1, 1]), np.zeros(3),
+                      np.ones(3), opt, track_visit=True)
+    assert kernels.LAUNCHES == before

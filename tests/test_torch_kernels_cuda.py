@@ -212,3 +212,154 @@ def test_stale_viewdir_frame_launches_kernel(cuda):
     same = nc == ng
     assert int((~same).sum()) <= 2
     assert float((sc - sg).reshape(-1, 4)[same].abs().max()) <= 1e-4
+
+
+# ----------------------------------------------------------------------
+# Refinement slice: kernels E (exact march), F (exact collect), G (padded
+# compositor) and kernel A's votes and depth mode.  Integers (votes,
+# visit marks, steps, sample counts, cluster ids) equal; floats within 1e-6.
+# ----------------------------------------------------------------------
+def _exact_scene(cuda, depth=5, basis_dim=4, fmt=None):
+    tree = P.sphere_tree(basis_dim=basis_dim, depth=depth, device=cuda)
+    cam = P.Camera(96, 80, 70.0)
+    cam.center = np.array([-1.3, 0.2, 1.2], np.float32)
+    cam._update()
+    dirs, cen = screen2worlddir(
+        96, 80, cam.fx, cam.fy, cam.cx, cam.cy,
+        torch.as_tensor(cam.transform, device=cuda))
+    return tree, cam, dirs, cen
+
+
+@pytest.mark.parametrize("track_visit,depth_mode,max_iters", [
+    (False, False, 0), (True, False, 0), (True, True, 0), (True, False, 7)])
+def test_exact_march_kernel_matches_plain(cuda, track_visit, depth_mode,
+                                          max_iters):
+    from mega_nerf_viewer_tpu_torch.ops import render
+    tree, _, dirs, cen = _exact_scene(cuda)
+    opt = P.RenderOptions(render_depth=depth_mode)
+    m = accel.march_inputs(tree, dirs, dirs, cen, opt)
+    before = kernels.LAUNCHES["exact_march"]
+    ok = kernels.exact_march(tree, m, opt, track_visit, 20, max_iters)
+    assert kernels.LAUNCHES["exact_march"] == before + 1
+    op = render.exact_march_reference(tree, m, opt, track_visit, 20,
+                                      max_iters)
+    assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+    for a, b in zip(ok[1:], op[1:]):
+        assert torch.equal(a, b)
+    if track_visit:
+        assert int(ok[3].sum()) > 1
+
+
+@pytest.mark.parametrize("S", [16, 2])
+def test_exact_collect_kernel_matches_plain(cuda, S):
+    from mega_nerf_viewer_tpu_torch.ops import guided
+    tree, _, dirs, cen = _exact_scene(cuda, basis_dim=1)
+    opt = P.RenderOptions(max_guided_samples=S, need_viewdir=True)
+    grid = (torch.tensor([2, 2], dtype=torch.int32, device=cuda),
+            torch.full((3,), -1.0, device=cuda),
+            torch.full((3,), 2.0, device=cuda))
+    m = guided.collect_inputs(tree, dirs, cen, opt)
+    before = kernels.LAUNCHES["exact_collect"]
+    ok = kernels.exact_collect(tree, m, dirs, dirs, cen, grid, opt, True, 20)
+    assert kernels.LAUNCHES["exact_collect"] == before + 1
+    op = guided.exact_collect_reference(tree, m, dirs, dirs, cen, grid, opt,
+                                        True, 20)
+    assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+    for a, b in zip(ok[1:], op[1:]):
+        assert torch.equal(a, b)
+    assert int(ok[2].sum()) > 0
+
+
+@pytest.mark.parametrize("basis_dim,fmt_sh,depth_mode", [
+    (1, True, False), (9, True, False), (9, True, True), (1, False, False)])
+def test_padded_composite_kernel_matches_plain(cuda, basis_dim, fmt_sh,
+                                               depth_mode):
+    from mega_nerf_viewer_tpu_torch.ops import padded_composite as pc
+    rng = np.random.RandomState(basis_dim)
+    R, S, out_dim = 3001, 32, 3 * basis_dim + 2
+    ns = rng.randint(0, S + 1, R).astype(np.int32)
+    res = rng.randn(R, S, out_dim).astype(np.float32)
+    res[..., min(3, out_dim - 1)] = np.abs(res[..., min(3, out_dim - 1)]) * 3
+    res[::7, 0, min(3, out_dim - 1)] = 1e8          # opaque first samples
+    z = np.sort(rng.rand(R, S).astype(np.float32) * 2, axis=1)
+    vd = rng.randn(R, 3).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    args = [torch.as_tensor(a, device=cuda) for a in (res, z, ns, vd)]
+    opt = P.RenderOptions(render_depth=depth_mode, basis_minmax=(0, 24))
+    before = kernels.LAUNCHES["padded_composite"]
+    ok = pc.composite_results_padded(*args, opt, basis_dim, fmt_sh)
+    assert kernels.LAUNCHES["padded_composite"] == before + 1
+    op = pc.composite_results_padded_reference(*args, opt, basis_dim, fmt_sh)
+    assert bool(torch.isfinite(ok).all())
+    assert float((ok - op).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("depth_mode", [False, True])
+@pytest.mark.parametrize("max_dense", [16, 0])
+def test_march_kernel_votes_and_depth(cuda, depth_mode, max_dense):
+    """Kernel A with votes and depth mode against its plain version, and
+    its votes against kernel E's on the same rays."""
+    tree, _, dirs, cen = _exact_scene(cuda, depth=6)
+    lm = P.build_leaf_map(tree)
+    opt = P.RenderOptions(render_depth=depth_mode)
+    m = accel.march_inputs(tree, dirs, dirs, cen, opt)
+    args = (tree, lm, m.cen, m.d, m.invdir, m.delta_scale, m.tmin, m.tmax,
+            m.miss, m.basis, m.step_size, m.sigma_thresh, m.stop_thresh,
+            max_dense, m.use_sh)
+    kw = dict(votes=(opt.max_depth, opt.max_sample_count),
+              render_depth=depth_mode)
+    ok = kernels.march(*args, **kw)
+    op = accel.render_rays_fast_reference(*args, **kw)
+    assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+    for a, b in zip(ok[1:], op[1:]):
+        assert torch.equal(a, b)
+    ex = kernels.exact_march(tree, m, opt, False, 20, 0)
+    assert torch.equal(ok[4], ex[1]) and torch.equal(ok[5], ex[2])
+    assert torch.equal(ok[2], ex[4])
+    if max_dense:
+        assert float((ok[0] - ex[0]).abs().max()) <= 1e-6
+
+
+def test_refinement_on_card_matches_cpu(cuda):
+    """Two expands, a resample, a visit-tracked exact frame and a prune
+    on the card and on the CPU, from the same uniform draws."""
+    from mega_nerf_viewer_tpu_torch.ops import refine
+    out = []
+    gen = torch.Generator().manual_seed(0)
+    draws = [torch.rand((64 * 8, 8, 3), generator=gen) for _ in range(2)]
+    draws.append(torch.rand((64, 8, 3), generator=gen))
+    for dev in ("cpu", cuda):
+        tree = P.sphere_tree(basis_dim=1, depth=3, max_capacity=400,
+                             device=dev)
+        model = P.MegaNeRFModel.synthetic(data_dim=4, n_clusters=4,
+                                          need_viewdir=True, device=dev)
+        opt = P.RenderOptions(use_splitting=True, split_batch_size=64,
+                              need_viewdir=True)
+        cam = P.Camera(32, 32, 30.0)
+        cam.center = np.array([-1.5, 0.1, 1.4], np.float32)
+        cam._update()
+        tracker = P.fresh_visit_tracker(tree)
+        args = (cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.transform, opt)
+        for i in range(2):
+            _, res = P.render_frame(tree, *args)
+            k = len(refine.aggregate_split_votes(res.split_vote, 64))
+            tree, tracker, n = P.expand_voxels(
+                tree, model, opt, res.split_vote, tracker,
+                rnd=draws[i][:k * 8].to(dev))
+        _, res = P.render_frame(tree, *args)
+        k = len(refine.aggregate_sample_votes(res.sample_vote, 64))
+        tree = P.get_more_samples(tree, model, opt, res.sample_vote,
+                                  rnd=draws[2][:k].to(dev))
+        _, res = P.render_frame(tree, *args, track_visit=True)
+        tracker = torch.maximum(tracker, res.visited)
+        tree, tracker = P.prune_tree(tree, tracker)
+        out.append((tree, tracker.cpu()))
+    (tc, vc), (tg, vg) = out
+    assert tc.capacity == tg.capacity
+    for k in ("child", "parent", "sample_counts"):
+        assert torch.equal(getattr(tc, k), getattr(tg, k).cpu())
+    assert torch.equal(vc, vg)
+    ulp = (tc.data.view(torch.int16).int()
+           - tg.data.cpu().view(torch.int16).int()).abs()
+    assert int(ulp.max()) <= 1

@@ -183,11 +183,22 @@ def test_march_reference_chunking_is_exact():
 
 
 def test_march_votes_and_depth_not_ported():
-    _, _, _, pt, plm, _ = _scene("sphere5")
+    """Votes and depth mode, which raised before the refinement slice,
+    now run: on these rays they match JAX (votes equal, pixels within
+    PIX_TOL; ``test_torch_votes.py`` holds them in full)."""
+    jt, jlm, _, pt, plm, _ = _scene("sphere5")
     d, cen = _random_rays(8, seed=0)
     args = (pt, plm, torch.as_tensor(d), torch.as_tensor(d),
             torch.as_tensor(cen))
-    with pytest.raises(NotImplementedError):
-        PA.render_rays_fast(*args, PRenderOptions(), need_votes=True)
-    with pytest.raises(NotImplementedError):
-        PA.render_rays_fast(*args, PRenderOptions(render_depth=True))
+    jargs = (jt, jlm, jnp.asarray(d), jnp.asarray(d), jnp.asarray(cen))
+    for opt, kw in ((RenderOptions(), dict(need_votes=True)),
+                    (RenderOptions(render_depth=True), {})):
+        popt = PRenderOptions(render_depth=opt.render_depth)
+        rp = PA.render_rays_fast(*args, popt, max_dense=16, **kw)
+        rj = JA.render_rays_fast(*jargs, opt, max_dense=16, chunk_size=0,
+                                 **kw)
+        assert float(np.abs(rp.out.numpy() - np.asarray(rj.out)).max()) \
+            <= PIX_TOL
+        for k in ("split_vote", "sample_vote"):
+            np.testing.assert_array_equal(getattr(rp, k).numpy(),
+                                          np.asarray(getattr(rj, k)))
