@@ -27,7 +27,17 @@ shapes of the main paths, and drives both paths of the port:
   leaf map rebuilt after each edit, ``refine_throughput.py``'s device
   loop, a visit-tracked exact frame (kernel E) and a prune, guided
   sampling with splitting (the exact collect, kernel F, and the padded
-  compositor, kernel G) and depth mode through kernels E, A and G.
+  compositor, kernel G) and depth mode through kernels E, A and G;
+* the user-facing path (phases 15-18): the ``Viewer`` session at 1080p on
+  the voxel scene (the hint frame, parked frames against phase 4's direct
+  frame, a 12-pose orbit stepped as ``cli --orbit`` steps it, each pose
+  against a fresh frame, rgba8 and a screenshot, ``host_unpermute``), the
+  Viewer's guided frames (a stop, reuse frames, a moved pose, depth mode on
+  the compact cache through kernel D's depth branch) and refinement frames
+  (the last with guided sampling on, through kernels F and G),
+  the CLI in a subprocess on a saved tree, kernel H (the row-gather probe)
+  at ``benchmarks/dma_gather_probe.py``'s shapes, and a small Viewer
+  session on the card against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -38,8 +48,10 @@ failed check raises; there is no CPU fallback.  It needs no network.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +70,9 @@ MARCH_OPS_PER_STEP = 45
 # weight, T (6), three logits (6 U), three sigmoids (12), the sums (6),
 # plus the SH basis evaluation of that B
 COMPOSITE_OPS = 24
+# f32 operations of one sample of kernel D's depth branch: delta, the
+# exponential, weight, weight * T and its sum, T
+DEPTH_OPS = 8
 SH_EVAL_OPS = {1: 0, 4: 3, 9: 18, 16: 48, 25: 89}
 # f32 operations of one exact-march step, counted from
 # csrc/descend_step.cuh and csrc/exact_march.cu: position and clip (9), one
@@ -367,6 +382,7 @@ def main():
     log(f"segmented frame vs hint frame: max abs diff {diff:.3e}")
     check(diff <= 1e-6, "segmented frame differs from the hint frame")
     frame_launches = launches
+    voxel_ref = (img, ms_frame)
     profile_frames(frame, ms_frame)
 
     # -- 5. a small frame against the plain path on the CPU -----------
@@ -401,12 +417,20 @@ def main():
     torch.cuda.empty_cache()
     guided_launches = guided_phases(P, kernels, dev, report)
     refine_launches = refine_phases(P, kernels, dev, report)
+    viewer_launches = viewer_phase(P, kernels, dev, voxel_ref)
+    del voxel_ref
+    torch.cuda.empty_cache()
+    viewer_guided_launches = viewer_guided_phase(P, kernels, dev, report)
+    probe_phase(kernels, dev, report)
+    small_viewer(P, dev)
 
-    # launches: each path's own run (phases 4, 8 and 12), summed over the
-    # paths for the kernels that several paths run
+    # launches: each path's own run (phases 4, 8, 12, 15 and 16), summed
+    # over the paths for the kernels that several paths run; kernel H is on
+    # no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
-            frame_launches, guided_launches, refine_launches))
+            frame_launches, guided_launches, refine_launches,
+            viewer_launches, viewer_guided_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -1248,6 +1272,562 @@ def refine_phases(P, kernels, dev, report):
     # -- 14. a small refinement on the card against the CPU ------------
     small_refinement(P, dev)
     return launches
+
+
+def uncounted(kernels, fn):
+    """``fn()`` without adding its launches to the path's counts: the
+    comparisons interleaved with a path are not the path."""
+    saved = dict(kernels.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        kernels.LAUNCHES.update(saved)
+
+
+def orbit_step(cam, n_poses):
+    """One pose of ``cli --orbit`` over ``n_poses`` frames (cli.py:193-201):
+    an incremental right-button drag of 2*pi/n_poses about the origin."""
+    step = 2.0 * np.pi / n_poses
+    cam.begin_drag(0.0, 0.0, False, True)
+    cam.drag_update(-step * max(cam.width, cam.height)
+                    / (2.0 * cam.movement_speed), 0.0)
+    cam.end_drag()
+
+
+class StepTimes:
+    """Within the block, the host milliseconds of the named functions of
+    ``modules`` ((module, names) pairs) that a Viewer frame calls, the card
+    synchronized around each call, summed per name into ``ms``: where a
+    slow frame's time goes."""
+
+    VOXEL = ("dilate_packed", "order_from_packed_device",
+             "hint_class_cdf_packed", "render_frame_fast_segmented",
+             "render_frame_fast", "pack_hints", "hint_class_cdf")
+    GUIDED = ("dilate_hints", "order_from_ns_steps_device", "hint_class_cdf")
+
+    def __init__(self, *modules):
+        self.saved = [(m, n, getattr(m, n)) for m, names in modules
+                      for n in names]
+        self.ms = {}
+
+    def __enter__(self):
+        def timed_step(name, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[name] = round(self.ms.get(name, 0.0) + (
+                    time.perf_counter() - t) * 1e3, 3)
+                return out
+            return call
+
+        for m, n, fn in self.saved:
+            setattr(m, n, timed_step(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def fresh_frame(P, tree, leaf_map, cam, opt, cs, skip_table):
+    """A fresh ``render_frame_fast`` of the camera's pose, its budget
+    doubled until nothing overflows."""
+    md = 8
+    while True:
+        img, ov, _ = P.render_frame_fast(tree, leaf_map, cam, opt,
+                                         max_dense=md, chunk_size=cs,
+                                         skip_table=skip_table)
+        if not int(ov):
+            return img
+        md *= 2
+        check(md <= 512, "pathological dense-sample count")
+
+
+def viewer_phase(P, kernels, dev, voxel_ref):
+    """Phase 15: the Viewer session at 1080p on the voxel scene, default
+    options, the sync overflow policy (viewer.py:347-795).  Returns the
+    launch counts of its run."""
+    from mega_nerf_viewer_tpu_torch.ops import accel
+    from mega_nerf_viewer_tpu_torch.utils.png import read_png
+
+    ref_img, ref_ms = voxel_ref
+    tree = P.shell_tree(depth=8, basis_dim=9, sigma_inside=400.0)
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    v = P.Viewer(tree, camera=cam)
+    cs = v.fast_chunk_size
+    check(cs == P.device_tuning(dev).chunk_size and v.overflow_policy
+          == "sync", "the Viewer's defaults are not the card's")
+    # the dilation window of each moved frame, as the Viewer computes it
+    windows = []
+    estimate = v._estimate_dilation
+
+    def spy(*a, **kw):
+        windows.append(estimate(*a, **kw))
+        return windows[-1]
+
+    v._estimate_dilation = spy
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img, first_ms = timed(lambda: v.render(fetch=False))
+    err = float((img - ref_img).abs().max())
+    log(f"viewer: first frame (the hint frame and its max_dense loop) "
+        f"{first_ms:.1f} ms, hint budget {v.fast_max_dense}, segments "
+        f"{v._segments}; against phase 4's frame max abs diff {err:.3e}")
+    check(err <= 1e-6, "the Viewer's hint frame differs from phase 4's")
+    worst = 0.0
+    for _ in range(N_FRAMES):
+        img = v.render(fetch=False)
+        worst = max(worst, float((img - ref_img).abs().max()))
+    check(img.shape == (HEIGHT, WIDTH, 4), f"viewer frame {img.shape}")
+    check(bool(torch.isfinite(img).all()), "non-finite viewer pixels")
+    check(worst <= 1e-6, f"a parked frame differs from phase 4's by {worst}")
+    rounds = sorted(cuda_ms(lambda: v.render(fetch=False), N_FRAMES)
+                    for _ in range(ROUNDS))
+    ms_parked = rounds[ROUNDS // 2]
+    log(f"viewer parked frames: {ms_parked:.3f} ms/frame (rounds "
+        f"{[round(r, 3) for r in rounds]}); each of {N_FRAMES} against "
+        f"phase 4's frame: max abs diff {worst:.3e}; the Viewer adds "
+        f"{ms_parked - ref_ms:.3f} ms to phase 4's {ref_ms:.3f} ms/frame")
+    profile_frames(lambda: v.render(fetch=False), ms_parked,
+                   what="viewer frame")
+
+    # a 12-pose orbit, timed as a user's frames run (no step timers), each
+    # pose against a fresh frame of that pose
+    poses = []
+    for _ in range(12):
+        orbit_step(cam, 12)
+        windows.clear()
+        img, ms = timed(lambda: v.render(fetch=False))
+        redo = v._segments_src == ("steady",)
+        fresh = uncounted(kernels, lambda: fresh_frame(
+            P, v.tree, v._leaf_map, cam, v.options, cs, v._skip_table))
+        err = float((img - fresh).abs().max())
+        poses.append(dict(ms=round(ms, 3),
+                          window=windows[0] if windows else None,
+                          redo=redo, err=err))
+        check(err <= 1e-6, f"orbit pose differs from a fresh frame by {err}")
+        check(bool(torch.isfinite(img).all()), "non-finite orbit pixels")
+    pose_ms = sorted(p["ms"] for p in poses)
+    log(f"viewer orbit (12 poses, cli --orbit steps): median "
+        f"{pose_ms[6]:.3f} ms/pose, {sum(p['redo'] for p in poses)} sync "
+        f"redos; each pose against a fresh frame: max abs diff "
+        f"{max(p['err'] for p in poses):.3e}; poses {poses}")
+    # six more poses, instrumented: each step timed on the host with the
+    # card synchronized around it (the syncs add to these poses' times)
+    inst = []
+    with StepTimes((accel, StepTimes.VOXEL)) as steps:
+        for _ in range(6):
+            orbit_step(cam, 12)
+            steps.ms.clear()
+            img, ms = timed(lambda: v.render(fetch=False))
+            check(bool(torch.isfinite(img).all()), "non-finite orbit pixels")
+            inst.append(dict(ms=round(ms, 3), steps=dict(steps.ms)))
+    log(f"viewer orbit, instrumented (6 more poses, each step "
+        f"synchronized): {inst}")
+
+    # parked again: rgba8, a screenshot, sorted delivery
+    rgba = v.render_rgba8()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "screenshot.png")
+        check(v.screenshot(path), "the screenshot was not written")
+        shot = read_png(path)
+    check(rgba.shape == (HEIGHT, WIDTH, 4) and rgba.dtype == np.uint8,
+          f"rgba8 frame {rgba.shape} {rgba.dtype}")
+    check(np.array_equal(shot, rgba), "the screenshot differs from rgba8")
+    plain = v.render()
+    v.host_unpermute = True
+    v.render()                        # fetches the inverse order once
+    sorted_img = v.render()
+    check(v.frame_index_map() is not None, "no sorted delivery")
+    check(np.array_equal(sorted_img, plain),
+          "host_unpermute frame differs from the device-unpermuted one")
+    check(np.array_equal(v.render_rgba8(), rgba),
+          "host_unpermute rgba8 differs")
+    ms_sorted = sorted(cuda_ms(lambda: v.render(fetch=False), N_FRAMES)
+                       for _ in range(ROUNDS))[ROUNDS // 2]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"viewer rgba8 and screenshot equal; host_unpermute frames equal, "
+        f"{ms_sorted:.3f} ms/frame with fetch=False; launches {launches}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    check(launches["skip_prepass"] > 0 and launches["march"] > 0,
+          f"a kernel of the Viewer's path never launched: {launches}")
+    return launches
+
+
+def depth_bound(total, R):
+    """Bytes and operations of one compact depth composite: sigma and z of
+    each valid sample, offs, ns and the rgba out; DEPTH_OPS per sample."""
+    return bound_ms(total * 8 + R * (4 + 4 + 16), DEPTH_OPS * total)
+
+
+def viewer_guided_phase(P, kernels, dev, report):
+    """Phase 16: the Viewer's guided frames on the guided 1080p scene and
+    model, then its refinement frames on phase 12's configuration, then
+    the CLI in a subprocess on the saved tree.  Returns the launch counts
+    of its run."""
+    from mega_nerf_viewer_tpu_torch.ops import accel, guided
+    from mega_nerf_viewer_tpu_torch.ops import compact_composite as cc
+    from mega_nerf_viewer_tpu_torch.utils.png import read_png
+
+    # room to grow: a full tree would put the Viewer under capacity
+    # pressure, tracking visits on the exact collect and pruning
+    tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                        max_capacity=2 * SHELL_CHUNKS)
+    model = P.MegaNeRFModel.synthetic(data_dim=int(tree.data_dim), seed=0,
+                                      **GUIDED_MODEL)
+    opt = P.RenderOptions(max_guided_samples=GUIDED_S, need_viewdir=True,
+                          use_guided_sampling=True)
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    v = P.Viewer(tree, camera=cam, options=opt, model=model)
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img, first_ms = timed(lambda: v.render(fetch=False))
+    check(img.shape == (HEIGHT, WIDTH, 4), f"guided frame {img.shape}")
+    check(bool(torch.isfinite(img).all()), "non-finite guided pixels")
+    check(float(img[..., :3].max()) > 0, "black guided frame")
+    # three stops (a step forward, then a stop), five reuse frames and a
+    # moved pose, timed as a user's frames run (no step timers)
+    stops = []
+    for _ in range(3):
+        v.key_event("W")
+        _, ms = timed(lambda: v.render(fetch=False))
+        stops.append(ms)
+    reuse = []
+    for _ in range(5):
+        _, ms = timed(lambda: v.render(fetch=False))
+        reuse.append(ms)
+    orbit_step(cam, 12)
+    img, moved_ms = timed(lambda: v.render(fetch=False))
+    check(bool(torch.isfinite(img).all()), "non-finite moved guided frame")
+    log(f"viewer guided: first frame {first_ms:.1f} ms; stops "
+        f"{sorted(stops)[1]:.3f} ms (runs {[round(t, 3) for t in stops]}); "
+        f"reuse frames {[round(t, 3) for t in reuse]} ms; a moved pose "
+        f"{moved_ms:.3f} ms; guided segments {v._guided_segments}")
+    # two more stops and a moved pose, instrumented: each step timed on
+    # the host with the card synchronized around it
+    inst = []
+    with StepTimes((guided, ("collect_and_query_fast", "composite_frame")),
+                   (accel, StepTimes.GUIDED)) as steps:
+        for move in ("W", "W", "orbit"):
+            if move == "orbit":
+                orbit_step(cam, 12)
+            else:
+                v.key_event(move)
+            steps.ms.clear()
+            img, ms = timed(lambda: v.render(fetch=False))
+            check(bool(torch.isfinite(img).all()), "non-finite guided frame")
+            inst.append(dict(move=move, ms=round(ms, 3), steps=dict(steps.ms)))
+    log(f"viewer guided, instrumented (two stops and a moved pose, each "
+        f"step synchronized): {inst}")
+
+    # depth mode on the compact cache: kernel D's depth branch
+    v.options = v.options.replace(render_depth=True)
+    n_d = kernels.LAUNCHES["compact_composite_depth"]
+    img_d, depth_ms = timed(lambda: v.render(fetch=False))
+    check(kernels.LAUNCHES["compact_composite_depth"] == n_d + 1,
+          "the depth frame did not run kernel D's depth branch")
+    cache = v._guided_cache[0]
+    c_args = (cache["results_c"], cache["z_c"], cache["ray_of_p"],
+              cache["offs"], cache.get("num_samples_sorted",
+                                       cache["num_samples"]), None)
+    ref = cc.composite_results_compact_reference(*c_args, v.options, 1, True)
+    inv = cache.get("order_inv")
+    ref = (ref if inv is None else ref[inv]).reshape(HEIGHT, WIDTH, 4)
+    err_dd = float((img_d - ref).abs().max())
+    log(f"viewer guided depth frame: {depth_ms:.3f} ms; against the plain "
+        f"compositor max abs diff {err_dd:.3e}; depth range "
+        f"{float(img_d[..., 0].min()):.4f} - {float(img_d[..., 0].max()):.4f}")
+    check(bool(torch.isfinite(img_d).all()), "non-finite depth frame")
+    check(err_dd <= 1e-6, f"kernel D depth differs by {err_dd}")
+    total = int(cache["offs"][-1])
+    R = c_args[4].shape[0]
+    o_d = v.options
+    ms_dd, by_dd = uncounted(kernels, lambda: device_ms(
+        lambda: cc.composite_results_compact_kernel(*c_args, o_d, 1, True),
+        20))
+    plain_dd = cuda_ms(lambda: cc.composite_results_compact_reference(
+        *c_args, o_d, 1, True), 2)
+    b_dd, b_dd_by = depth_bound(total, R)
+    log(f"kernel compact_composite (depth, {total} samples, {R} rays): "
+        f"{ms_dd:.4f} ms on the device ({by_dd}; plain {plain_dd:.2f} ms, "
+        f"bound {b_dd:.4f} ms by {b_dd_by})")
+    report.append(dict(
+        name="compact_composite_depth", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/compact_composite.cu",
+        replaces="mega_nerf_viewer_tpu/ops/guided.py:706",
+        max_abs_err=err_dd, ms=ms_dd, ms_by=by_dd, plain_ms=plain_dd,
+        bound_ms=b_dd, bound_by=b_dd_by, library_ms=None))
+    del v, cache, c_args, ref, img, img_d, tree
+    torch.cuda.empty_cache()
+
+    # refinement frames on phase 12's configuration
+    tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                        max_capacity=REFINE_CAPACITY)
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    v = P.Viewer(tree, camera=cam, options=P.RenderOptions(**REFINE_OPT),
+                 model=model)
+    # three splitting frames (the prune fires after the third), then guided
+    # sampling toggled on (key R): the fourth frame is a guided splitting
+    # frame that tracks visits after the prune (the exact collect, kernel
+    # F, and the padded compositor, kernel G)
+    frames = []
+    for i in range(4):
+        if i == 3:
+            v.key_event("R")
+        cap0 = v.tree.capacity
+        n_f = kernels.LAUNCHES["exact_collect"]
+        img, ms = timed(lambda: v.render(fetch=False))
+        check(bool(torch.isfinite(img).all()), "non-finite split frame")
+        frames.append(dict(ms=round(ms, 1), capacity=(cap0, v.tree.capacity),
+                           pruned=v._prune_happened,
+                           guided=v.options.use_guided_sampling,
+                           visits=v._visits_valid))
+    check(kernels.LAUNCHES["exact_collect"] > n_f and frames[3]["visits"],
+          "the guided splitting frame did not track visits on kernel F")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"viewer splitting frames (the fourth guided): {frames}; launches "
+        f"{launches}; peak memory {peak / 2**30:.2f} GiB")
+    check(frames[0]["capacity"][1] > SHELL_CHUNKS, "the first frame split "
+          "nothing")
+    check(frames[2]["pruned"], "the prune did not fire")
+    check(frames[3]["capacity"][1] > frames[3]["capacity"][0],
+          "the guided splitting frame split nothing")
+    for k in ("skip_prepass", "collect", "compact_composite",
+              "compact_composite_depth", "exact_march", "march",
+              "exact_collect", "padded_composite"):
+        check(launches[k] > 0, f"a kernel of the Viewer's guided and "
+              f"splitting frames never launched: {launches}")
+
+    # the session saved and restored, then the CLI on the saved tree
+    with tempfile.TemporaryDirectory() as td:
+        state, npz = os.path.join(td, "state.json"), os.path.join(td, "t.npz")
+        v.save_state(state, tree_path=npz)
+        v2 = P.Viewer(max_tree_capacity=REFINE_CAPACITY)
+        v2.load_state(state)
+        check(v2.tree.capacity == v.tree.capacity and torch.equal(
+            v2.tree.child[:v.tree.capacity], v.tree.child[:v.tree.capacity]),
+            "the restored session's tree differs")
+        del v, v2
+        torch.cuda.empty_cache()
+        out = os.path.join(td, "orbit.png")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "mega_nerf_viewer_tpu_torch.cli", npz,
+             "-w", str(WIDTH), "--height", str(HEIGHT), "--frames", "4",
+             "--orbit", "-o", out], cwd=os.path.dirname(
+                 os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        log(f"cli --frames 4 --orbit at {WIDTH}x{HEIGHT}: exit "
+            f"{run.returncode} in {cli_s:.1f} s; {run.stdout.strip()[-300:]}"
+            + (f"; stderr {run.stderr.strip()[-2000:]}" if run.returncode
+               else ""))
+        check(run.returncode == 0, "the CLI failed")
+        for f in range(4):
+            png = read_png(os.path.join(td, f"orbit_{f:04d}.png"))
+            check(png.shape == (HEIGHT, WIDTH, 4), f"CLI frame {f} {png.shape}")
+            check(int(png[..., :3].max()) > 0, f"CLI frame {f} is black")
+    return launches
+
+
+def probe_phase(kernels, dev, report):
+    """Phase 17: kernel H, the row-gather probe, at
+    benchmarks/dma_gather_probe.py's shapes (M 2^20, N 2^21, W 8 and
+    128), bit-equal to its plain version and to the library's gather."""
+    from mega_nerf_viewer_tpu_torch.probes import gather_probe as gp
+    idx, tables = gp.probe_inputs(21, dev)
+    N = idx.shape[0]
+    rows = {}
+    for W, table in tables:
+        got = gp.gather_chunk_sums(table, idx)
+        want = gp.gather_chunk_sums_reference(table, idx)
+        lib = gp.gather_chunk_sums_library(table, idx)
+        check(torch.equal(got, want), f"kernel H differs at W={W}")
+        check(torch.equal(lib, want), f"the library's sums differ at W={W}")
+        ms, by = device_ms(lambda: gp.gather_chunk_sums(table, idx), 20)
+        plain = cuda_ms(lambda: gp.gather_chunk_sums_reference(table, idx), 3)
+        lib_ms, lib_by = device_ms(
+            lambda: gp.gather_chunk_sums_library(table, idx), 5)
+        b, b_by = bound_ms(gp.bound_bytes(N, W) + nbytes(got), N * W)
+        log(f"kernel gather_chunk_sums W={W} (M {table.shape[0]}, N {N}): "
+            f"bit-equal; {ms:.4f} ms on the device ({by}), "
+            f"{ms * 1e6 / N:.4f} ns/row; library (index_select and the sum) "
+            f"{lib_ms:.4f} ms ({lib_by}); plain {plain:.2f} ms; bound "
+            f"{b:.4f} ms by {b_by}")
+        rows[W] = dict(ms=ms, ms_by=by, plain_ms=plain, bound_ms=b,
+                       bound_by=b_by, library_ms=lib_ms)
+        del got, want, lib
+    del idx, tables
+    torch.cuda.empty_cache()
+    report.append(dict(
+        name="gather_chunk_sums", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/gather_probe.cu",
+        replaces="benchmarks/dma_gather_probe.py:54", max_abs_err=0.0,
+        width=8, **rows[8], w128=rows[128]))
+
+
+class SameDraws:
+    """Within the block, the Viewer's refinement takes its uniform draws
+    from one CPU generator (seed 0) as ``rnd``, so that a session on the
+    card and one on the CPU fill their splits from the same numbers (the
+    two devices' generators draw differently)."""
+
+    def __init__(self, refine):
+        self.refine = refine
+        self.saved = (refine.expand_voxels, refine.get_more_samples)
+
+    def __enter__(self):
+        refine = self.refine
+        expand, resample = self.saved
+        gen = torch.Generator().manual_seed(0)
+
+        def draw(shape, dev):
+            return torch.rand(shape, generator=gen).to(dev)
+
+        def expand_same(tree, model, opt, split_vote, tracker, **kw):
+            K = len(refine.aggregate_split_votes(split_vote,
+                                                 opt.split_batch_size))
+            return expand(tree, model, opt, split_vote, tracker, rnd=draw(
+                (K * tree.N3, opt.samples_per_corner, 3), tree.device))
+
+        def resample_same(tree, model, opt, sample_vote, **kw):
+            K = len(refine.aggregate_sample_votes(sample_vote,
+                                                  opt.split_batch_size))
+            return resample(tree, model, opt, sample_vote, rnd=draw(
+                (K, opt.samples_per_corner, 3), tree.device))
+
+        refine.expand_voxels = expand_same
+        refine.get_more_samples = resample_same
+        return self
+
+    def __exit__(self, *exc):
+        self.refine.expand_voxels, self.refine.get_more_samples = self.saved
+
+
+def small_viewer(P, dev):
+    """Phase 18: a small Viewer session (64x48, sphere trees) on the card
+    and on the CPU: parked and orbit frames, guided frames, split frames
+    and guided split frames.  On every frame the hints or sample counts,
+    orders, segments and capacity are equal and the frames within 1e-5;
+    refined data within one f16 ulp, and split frames within 1e-5 while
+    the data they render stays bit-equal."""
+    from mega_nerf_viewer_tpu_torch.ops import refine
+
+    def cam():
+        c = P.Camera(64, 48, 50.0)
+        c.center = np.asarray((-1.5, 0.1, 1.4), np.float32)
+        c._update()
+        return c
+
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+    def split_viewer(d, **opt_kw):
+        v = P.Viewer(P.sphere_tree(basis_dim=1, depth=3, max_capacity=400,
+                                   device=d), camera=cam(),
+                     options=P.RenderOptions(use_splitting=True,
+                                             split_batch_size=64,
+                                             need_viewdir=True, **opt_kw),
+                     model=P.MegaNeRFModel.synthetic(
+                         data_dim=4, n_clusters=4, need_viewdir=True,
+                         device=d), device=d)
+        v.fast_chunk_size = 256
+        return v
+
+    runs = []
+    for d in ("cpu", dev):
+        rec = dict(voxel=[], guided=[], split=[], guided_split=[])
+        # parked and orbit frames
+        v = P.Viewer(P.sphere_tree(basis_dim=4, depth=5, device=d),
+                     camera=cam(), device=d)
+        v.fast_chunk_size = 256
+        for i in range(5):
+            if i >= 2:
+                orbit_step(v.camera, 12)
+            img = host(v.render(fetch=False))
+            rec["voxel"].append((img, host(v._hints_packed),
+                                 [host(t) for t in v._ray_order],
+                                 list(v._segments)))
+        # guided frames: a stop, a reuse, a moved pose
+        gopt = P.RenderOptions(use_guided_sampling=True,
+                               max_guided_samples=16, need_viewdir=True)
+        v = P.Viewer(P.sphere_tree(basis_dim=1, depth=4, max_capacity=20000,
+                                   device=d), camera=cam(), options=gopt,
+                     model=P.MegaNeRFModel.synthetic(
+                         data_dim=4, n_clusters=4, need_viewdir=True,
+                         device=d), device=d)
+        v.fast_chunk_size = 256
+        for i in range(3):
+            if i == 2:
+                orbit_step(v.camera, 12)
+            img = host(v.render(fetch=False))
+            cache = v._guided_cache[0]
+            rec["guided"].append((img, host(cache["num_samples"]),
+                                  [host(t) for t in v._guided_order],
+                                  v._guided_segments))
+        # split frames, then guided split frames (the exact collect and
+        # the padded compositor), each from the same draws
+        for key, kw in (("split", {}), ("guided_split", dict(
+                use_guided_sampling=True, max_guided_samples=16))):
+            v = split_viewer(d, **kw)
+            with SameDraws(refine):
+                for i in range(4):
+                    img = host(v.render(fetch=False))
+                    t = v.tree
+                    rec[key].append((img, t.capacity, v._prune_happened,
+                                     host(t.child), host(t.data)))
+        runs.append(rec)
+    cpu, card = runs
+
+    for i, (a, b) in enumerate(zip(cpu["voxel"], card["voxel"])):
+        n_bad = int((a[1] != b[1]).sum())
+        err = float((a[0] - b[0]).abs().max())
+        log(f"small viewer frame {i}: {n_bad} rays with other hints, max "
+            f"abs diff {err:.3e}")
+        check(n_bad == 0, f"card and CPU hints differ at frame {i}")
+        check(err <= 1e-5, f"card and CPU viewer frames differ at frame {i}")
+        check(all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+              and a[3] == b[3], f"card and CPU orders or segments differ at "
+              f"frame {i}")
+    for i, (a, b) in enumerate(zip(cpu["guided"], card["guided"])):
+        n_bad = int((a[1] != b[1]).sum())
+        err = float((a[0] - b[0]).abs().max())
+        log(f"small viewer guided frame {i}: {n_bad} rays with other sample "
+            f"counts, max abs diff {err:.3e}")
+        check(n_bad == 0, f"card and CPU sample counts differ at guided "
+              f"frame {i}")
+        check(err <= 1e-5, f"card and CPU guided viewer frames differ at "
+              f"frame {i}")
+        check(all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+              and a[3] == b[3], f"card and CPU guided orders or segments "
+              f"differ at frame {i}")
+    for key in ("split", "guided_split"):
+        exact_data = True
+        for i, (a, b) in enumerate(zip(cpu[key], card[key])):
+            err = float((a[0] - b[0]).abs().max())
+            ulp = int((a[4].view(torch.int16).int()
+                       - b[4].view(torch.int16).int()).abs().max())
+            log(f"small viewer {key} frame {i}: capacity {b[1]} (CPU "
+                f"{a[1]}), pruned {b[2]}, max abs diff {err:.3e}, data "
+                f"within {ulp} f16 ulp")
+            check(a[1] == b[1] and a[2] == b[2] and torch.equal(a[3], b[3]),
+                  f"card and CPU trees differ after {key} frame {i}")
+            check(ulp <= 1, "card and CPU data differ by more than one f16 "
+                  "ulp")
+            if exact_data:
+                # a frame rendered on bit-equal data
+                check(err <= 1e-5, f"card and CPU {key} frames differ by "
+                      f"{err}")
+            exact_data = exact_data and ulp == 0
+        check(cpu[key][-1][1] > cpu[key][0][1], f"no split happened ({key})")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ exact renderer with votes and visit marks, vote frames on the fast path,
 split, resample and prune (``ops/refine.py``), and guided sampling with
 splitting through the exact collect and the padded compositor, with depth
 mode; its kernels are the exact march, the exact collect and the padded
-compositor, and the fused march gained votes and depth.  Entry points run
+compositor, and the fused march gained votes and depth.  The fourth is the
+user-facing path: the :class:`Viewer` session (``viewer.py``), the headless
+``api`` and the ``cli``, with depth mode in the compact compositor and the
+row-gather probe (``probes/gather_probe.py``).  Entry points run
 on the CUDA card unless they are given ``device="cpu"``, where the
 kernels' plain PyTorch versions run instead.
 """
@@ -35,6 +38,7 @@ from .ops.render import (RenderResult, fresh_visit_tracker, render_frame,
                          render_rays)
 from .ops.skip_prepass import build_skip_table, entry_skip_prepass
 from .utils.tuning import device_tuning
+from .viewer import Viewer
 
 __all__ = [
     "Camera", "RenderOptions", "N3Tree", "shell_tree", "sphere_tree",
@@ -46,4 +50,5 @@ __all__ = [
     "collect_and_query", "collect_samples", "composite_results",
     "expand_voxels", "expand_voxels_jit", "get_more_samples", "prune_tree",
     "RenderResult", "fresh_visit_tracker", "render_frame", "render_rays",
+    "Viewer",
 ]

@@ -15,6 +15,11 @@
 // would give NaN.  Output [R, 4] rgba with alpha 1; a ray with no samples
 // is (0, 0, 0, 1).
 //
+// Depth mode (render_depth) is a branch of the same walk, as the XLA
+// route has it (mega_nerf_viewer_tpu/ops/guided.py:706-707, :724-726;
+// rt_core.cuh:372): it sums weight * T (T before this sample) and writes
+// min(0.3 * sum, 1) to all three channels.  It reads no view directions.
+//
 // The TPU kernel is a segmented scan over (16, 128) tiles with lane
 // shifts and a carry row from block to block, then a gather at each
 // ray's last sample.  A thread per ray replaces all of it: no segment
@@ -81,7 +86,8 @@ compact_composite_kernel(const float* __restrict__ res, int out_dim,
                          const int* __restrict__ offs,
                          const int* __restrict__ ns,
                          const float* __restrict__ vdirs, int B, int use_sh,
-                         int bmin, int bmax, int R, float* __restrict__ out) {
+                         int bmin, int bmax, int depth, int R,
+                         float* __restrict__ out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int sidx = out_dim - 1 < 3 ? out_dim - 1 : 3;
@@ -97,6 +103,11 @@ compact_composite_kernel(const float* __restrict__ res, int out_dim,
     const float delta = last ? 0.0f : z[i + 1] - z[i];
     const float wc = expf(-row[sidx] * delta);
     const float weight = last ? T : T * (1.0f - wc);
+    if (depth) {
+      acc0 = acc0 + weight * T;
+      T = T * wc;
+      continue;
+    }
     float c0, c1, c2;
     if (use_sh) {
       sh_basis(B, vdirs[3 * i], vdirs[3 * i + 1], vdirs[3 * i + 2], basis);
@@ -119,6 +130,10 @@ compact_composite_kernel(const float* __restrict__ res, int out_dim,
     acc2 = acc2 + weight * c2;
     T = T * wc;
   }
+  if (depth) {
+    const float v = fminf(acc0 * 0.3f, 1.0f);
+    acc0 = acc1 = acc2 = v;
+  }
   reinterpret_cast<float4*>(out)[r] = make_float4(acc0, acc1, acc2, 1.0f);
 }
 
@@ -127,13 +142,13 @@ compact_composite_kernel(const float* __restrict__ res, int out_dim,
 extern "C" int compact_composite_launch(
     const void* res, int out_dim, const void* z, const void* offs,
     const void* ns, const void* vdirs, int B, int use_sh, int bmin, int bmax,
-    int R, void* out, void* stream) {
+    int depth, int R, void* out, void* stream) {
   const int grid = (R + mnv::kBlock - 1) / mnv::kBlock;
   mnv::compact_composite_kernel<<<grid, mnv::kBlock, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(res), out_dim, static_cast<const float*>(z),
       static_cast<const int*>(offs), static_cast<const int*>(ns),
-      static_cast<const float*>(vdirs), B, use_sh, bmin, bmax, R,
+      static_cast<const float*>(vdirs), B, use_sh, bmin, bmax, depth, R,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

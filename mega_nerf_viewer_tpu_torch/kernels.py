@@ -7,16 +7,18 @@ a hash of the sources and flags, and loaded with ``ctypes``.  Every kernel
 is built with ``-fmad=false``: the JAX reference rounds each f32 op
 separately except where the kernels call ``__fmaf_rn`` explicitly, and
 the prepass's ``t`` must be bit-equal to the march's and the collect
-march's.  The seven kernels: ``skip_prepass`` (B), ``march`` (A, with
+march's.  The eight kernels: ``skip_prepass`` (B), ``march`` (A, with
 votes and depth mode), ``collect`` (C, the guided collect march),
-``compact_composite`` (D, the compact guided compositor), ``exact_march``
-(E, the exact renderer's march with votes and visit marks),
-``exact_collect`` (F, the exact guided collect) and ``padded_composite``
-(G, the padded guided compositor).
+``compact_composite`` (D, the compact guided compositor, with depth
+mode), ``exact_march`` (E, the exact renderer's march with votes and
+visit marks), ``exact_collect`` (F, the exact guided collect),
+``padded_composite`` (G, the padded guided compositor) and
+``gather_chunk_sums`` (H, the row-gather probe).
 
 Each launch function checks its tensors, allocates the outputs, launches
 on PyTorch's current stream, raises on a non-zero ``cudaGetLastError()``
-and adds one to its entry of :data:`LAUNCHES`.  There is no fallback: a
+and adds one to its entry of :data:`LAUNCHES` (kernel D's depth mode
+counts under ``compact_composite_depth``).  There is no fallback: a
 tensor that is not on a CUDA device is refused.
 """
 
@@ -37,15 +39,16 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 SOURCES = ("skip_prepass.cu", "march.cu", "collect.cu",
            "compact_composite.cu", "exact_march.cu", "exact_collect.cu",
-           "padded_composite.cu")
+           "padded_composite.cu", "gather_probe.cu")
 HEADERS = ("common.cuh", "march_step.cuh", "descend_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"skip_prepass": 0, "march": 0, "collect": 0,
-            "compact_composite": 0, "exact_march": 0, "exact_collect": 0,
-            "padded_composite": 0}
+            "compact_composite": 0, "compact_composite_depth": 0,
+            "exact_march": 0, "exact_collect": 0, "padded_composite": 0,
+            "gather_chunk_sums": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -72,10 +75,10 @@ _SIGNATURES = {
     # stream
     "collect_launch": (_P, _L, _P, _L, _I, _P, _L, _I, _I, _P, _P, _P, _P,
                        _P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P, _P, _P),
-    # res, out_dim, z, offs, ns, vdirs, basis_dim, use_sh, bmin, bmax, R,
-    # out, stream
+    # res, out_dim, z, offs, ns, vdirs, basis_dim, use_sh, bmin, bmax,
+    # depth, R, out, stream
     "compact_composite_launch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _P, _P),
+                                 _I, _I, _P, _P),
     # the exact tree (child, n_child, data, n_nodes, D, counts, N,
     # max_levels, visited, n_visited), cen, d, invdir, delta_scale, tmin,
     # tmax, miss, basis, B, use_sh, render_depth, step_size, sigma_thresh,
@@ -100,6 +103,8 @@ _SIGNATURES = {
     # res, S, out_dim, z, ns, basis, B, mode, R, out, stream
     "padded_composite_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P,
                                 _P),
+    # table, M, W, idx, n_chunks, out, stream
+    "gather_chunk_sums_launch": (_P, _L, _I, _P, _I, _P, _P),
 }
 
 
@@ -335,17 +340,20 @@ def collect(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
 
 
 def compact_composite(res_c, z_c, offs, ns, vdirs_c, basis_dim, use_sh,
-                      basis_min, basis_max):
+                      basis_min, basis_max, depth=False):
     """Launch the compact compositor (csrc/compact_composite.cu).  Ray r
     composites the samples [offs[r] - ns[r], offs[r]).  ``vdirs_c`` may be
     None when ``use_sh`` is false: the kernel then reads no view
-    directions.  Returns rgba [R, 4] f32 with alpha 1."""
+    directions.  ``depth`` composites depth (``use_sh`` must be false).
+    Returns rgba [R, 4] f32 with alpha 1."""
     dev = _cuda_device(res_c)
     M, out_dim = res_c.shape
     R = ns.shape[0]
     f32, i32 = torch.float32, torch.int32
     if use_sh and vdirs_c is None:
         raise ValueError("an SH composite needs vdirs_c")
+    if use_sh and depth:
+        raise ValueError("depth mode shades nothing: use_sh must be false")
     inputs = [("res_c", res_c, f32, (M, out_dim)), ("z_c", z_c, f32, (M,)),
               ("offs", offs, i32, (R,)), ("ns", ns, i32, (R,))]
     if vdirs_c is not None:
@@ -355,7 +363,7 @@ def compact_composite(res_c, z_c, offs, ns, vdirs_c, basis_dim, use_sh,
     if use_sh and (basis_dim not in (1, 4, 9, 16, 25)
                    or 3 * basis_dim > out_dim):
         raise ValueError(f"basis dim {basis_dim} with out_dim {out_dim}")
-    if not use_sh and out_dim < 3:
+    if not use_sh and not depth and out_dim < 3:
         raise ValueError(f"out_dim {out_dim} < 3")
     out = torch.empty((R, 4), dtype=f32, device=dev)
     if R == 0:
@@ -366,10 +374,10 @@ def compact_composite(res_c, z_c, offs, ns, vdirs_c, basis_dim, use_sh,
             res_c.data_ptr(), out_dim, z_c.data_ptr(), offs.data_ptr(),
             ns.data_ptr(), None if vdirs_c is None else vdirs_c.data_ptr(),
             int(basis_dim), int(use_sh),
-            max(0, int(basis_min)), int(basis_max), R, out.data_ptr(),
-            _stream(dev))
+            max(0, int(basis_min)), int(basis_max), int(bool(depth)), R,
+            out.data_ptr(), _stream(dev))
     _raise_on(err, "compact_composite")
-    LAUNCHES["compact_composite"] += 1
+    LAUNCHES["compact_composite_depth" if depth else "compact_composite"] += 1
     return out
 
 
@@ -555,6 +563,40 @@ def padded_composite(results, z_vals, ns, basis, mode: int):
     return out
 
 
+def gather_chunk_sums(table, idx):
+    """Launch the row-gather probe (csrc/gather_probe.cu): ``out[c]`` is
+    the sum, wrapping mod 2^32, of ``table[idx[k], :]`` over the 2048
+    indices k of chunk c.  ``table`` i32 [M, W], ``idx`` i32 [N] with N a
+    multiple of 2048; an index outside [0, M) is clamped into it.  Returns
+    i32 [N / 2048]."""
+    dev = _cuda_device(table)
+    M, W = table.shape
+    N = idx.shape[0]
+    _check("table", table, torch.int32, (M, W), dev)
+    _check("idx", idx, torch.int32, (N,), dev)
+    chunk = 2048
+    if N % chunk:
+        raise ValueError(f"N={N} must be a multiple of the kernel's chunk "
+                         f"2048")
+    if M == 0 or W == 0 or W > (1 << 18):
+        # the kernel counts a chunk's 2048 * W elements in an int
+        raise ValueError(f"table shape {tuple(table.shape)}: W must be in "
+                         f"[1, 2^18]")
+    n_chunks = N // chunk
+    out = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
+    if n_chunks == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.gather_chunk_sums_launch(
+            table.data_ptr(), M, W, idx.data_ptr(), n_chunks, out.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "gather_chunk_sums")
+    LAUNCHES["gather_chunk_sums"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "SOURCES", "build", "collect", "compact_composite",
-           "exact_collect", "exact_march", "library_path", "march",
-           "padded_composite", "reset_launch_counts", "skip_prepass"]
+           "exact_collect", "exact_march", "gather_chunk_sums",
+           "library_path", "march", "padded_composite",
+           "reset_launch_counts", "skip_prepass"]

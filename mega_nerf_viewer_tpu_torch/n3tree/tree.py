@@ -22,7 +22,7 @@ carries a tree across from the JAX package's arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,53 @@ class N3Tree:
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    def pack_index(self, nd: int, i: int, j: int, k: int) -> int:
+        """Pack (chunk, i, j, k) into a flat node id (``n3tree.cpp:331-335``)."""
+        if not (0 <= i < self.N and 0 <= j < self.N and 0 <= k < self.N):
+            raise ValueError(f"child index ({i}, {j}, {k}) outside N={self.N}")
+        return nd * self.N3 + i * self.N * self.N + j * self.N + k
+
+    def unpack_index(self, packed: int) -> Tuple[int, int, int, int]:
+        """Inverse of :meth:`pack_index` (``n3tree.cpp:337-345``)."""
+        k = packed % self.N
+        packed //= self.N
+        j = packed % self.N
+        packed //= self.N
+        i = packed % self.N
+        packed //= self.N
+        return packed, i, j, k
+
+    def save_npz(self, path: str) -> None:
+        """Write the live chunks back in the svox schema (``tree.py:182-214``
+        of the JAX package; the reference never writes a tree).  Column 1 of
+        ``parent_depth`` holds each chunk's depth, found by a fixpoint over
+        the parent chain (root 0); the loader reads column 0 only."""
+        cap = int(self.capacity)
+        parent = self.parent[:cap].cpu().numpy()
+        parent_depth = np.zeros((cap, 2), dtype=np.int32)
+        parent_depth[:, 0] = parent
+        pc = np.clip(parent // self.N3, 0, max(cap - 1, 0))
+        depth = np.zeros(cap, dtype=np.int32)
+        nonroot = np.arange(cap) > 0
+        for _ in range(64):
+            nd = np.where(nonroot, depth[pc] + 1, 0).astype(np.int32)
+            if np.array_equal(nd, depth):
+                break
+            depth = nd
+        parent_depth[:, 1] = depth
+        np.savez(
+            path,
+            data_dim=np.int64(self.data_dim),
+            data_format=np.str_(self.data_format.to_string()),
+            invradius3=self.scale.cpu().numpy().astype(np.float32),
+            offset=self.offset.cpu().numpy().astype(np.float32),
+            child=self.child[:cap].cpu().numpy().reshape(
+                cap, self.N, self.N, self.N),
+            parent_depth=parent_depth,
+            data=self.data[:cap].cpu().numpy().astype(np.float16),
+            sample_counts=self.sample_counts[:cap].cpu().numpy(),
+        )
 
     @staticmethod
     def from_arrays(data: np.ndarray, child: np.ndarray,

@@ -485,7 +485,7 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                 camera, opt: RenderOptions,
                 skip_table: Optional[torch.Tensor],
                 *, seg_counts: tuple, chunk_size: int,
-                return_hints: bool, group: int = 1,
+                return_hints, group: int = 1,
                 sorted_output: bool = False, need_votes: bool = False):
     """One fast frame: raygen in ``perm`` order -> setup -> (prepass) ->
     march per segment -> unpermute -> background composite.  ``seg_counts`` =
@@ -495,7 +495,9 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     [R/g, 4g] rows.  ``sorted_output`` leaves the rows in ``perm`` order
     (the composite is elementwise, so that is bit-identical).
     ``need_votes`` adds ``split_vote`` and ``sample_vote`` in pixel
-    order."""
+    order.  ``return_hints`` adds ``steps``, ``nrec`` and ``skips`` in
+    pixel order, or, as ``"packed"``, one ``hints_packed`` array in
+    :func:`pack_hints` layout (``accel.py:708-723``, ``:821-822``)."""
     dev = tree.device
     R = inv.shape[0]
     n_total = sum(c for c, _ in seg_counts) * chunk_size
@@ -546,7 +548,12 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     if need_votes:
         ret["split_vote"] = torch.cat(svs, 0)[:R][inv]
         ret["sample_vote"] = torch.cat(pvs, 0)[:R][inv]
-    if return_hints:
+    if return_hints == "packed":
+        # one [R] i32 and one unpermute gather instead of three
+        ret["hints_packed"] = pack_hints(torch.cat(steps, 0)[:R],
+                                         torch.cat(nrec, 0)[:R],
+                                         skips[:R])[inv]
+    elif return_hints:
         ret["steps"] = torch.cat(steps, 0)[:R][inv]
         ret["nrec"] = torch.cat(nrec, 0)[:R][inv]
         ret["skips"] = skips[:R][inv]
@@ -625,6 +632,157 @@ def class_ladder(top: int) -> tuple:
         c *= 2
     classes.append(int(top))
     return tuple(classes)
+
+
+# ----------------------------------------------------------------------
+# Hints: packing, class CDFs, budgets, motion dilation, device orders
+# ----------------------------------------------------------------------
+def pack_hints(steps, nrec, skips) -> torch.Tensor:
+    """Per-ray (steps, nrec, skips) hints folded into one i32
+    (``accel.py:939-957``): ``nrec:8 @18 | steps:9 @9 | skips:9 @0``, the
+    shift layout :func:`order_from_hints_device` sorts by, so the packed
+    value is the order key itself.  The nrec field's cap (255) is above
+    the 128 escalation ceiling, so budget classes survive packing."""
+    steps = torch.as_tensor(steps).to(torch.int32).clamp_max(511)
+    nrec = torch.as_tensor(nrec).to(torch.int32).to(
+        steps.device).clamp_max(255)
+    skips = (torch.zeros_like(steps) if skips is None else
+             torch.as_tensor(skips).to(torch.int32).to(
+                 steps.device).clamp_max(511))
+    return (nrec << 18) | (steps << 9) | skips
+
+
+def order_from_packed_device(ph) -> tuple:
+    """(perm, inv) from packed hints (``accel.py:986-996``): a stable sort
+    of the packed value.  int64 tensors on the hints' device."""
+    return _argsort_stable(torch.as_tensor(ph).to(torch.int32))
+
+
+def hint_class_cdf(nrec, classes: tuple = (0, 1, 2, 4, 8)) -> torch.Tensor:
+    """Per-class counts of ``nrec <= c`` over the budget ladder, then the
+    hint max (``accel.py:1013-1023``): i32 [len(classes) + 1], on the
+    hints' device."""
+    nrec = torch.as_tensor(nrec).to(torch.int32)
+    return torch.stack([(nrec <= c).sum().to(torch.int32) for c in classes]
+                       + [nrec.max()])
+
+
+def hint_class_cdf_packed(ph, classes: tuple = (0, 1, 2, 4, 8)):
+    """:func:`hint_class_cdf` over the nrec field of packed hints
+    (``accel.py:978-983``)."""
+    return hint_class_cdf(torch.as_tensor(ph).to(torch.int32) >> 18, classes)
+
+
+def segments_from_hint_cdf(cdf_counts, R: int,
+                           classes: tuple = (0, 1, 2, 4, 8),
+                           quant: int = 16,
+                           headroom: bool = False,
+                           max_budget: int = 128,
+                           margin: int = 0,
+                           top_headroom: bool = False) -> tuple:
+    """(fraction, max_dense) segments from a hint-class CDF
+    (``accel.py:1026-1100``), host arithmetic as in JAX.
+
+    Fractions are floored to 1/``quant`` (less ``margin`` quanta) so each
+    class boundary sits at or below its CDF point.  With the trailing
+    hint-max entry the last class's budget covers that max, rounded up
+    the power-of-two ladder to ``max_budget``; ``top_headroom`` adds one
+    more step.  When the top exceeds the ladder, ``classes[-1]`` stays a
+    real boundary and only the remainder pays the top (the heavy-tail
+    rule, ``:1079-1085``).  ``headroom`` (motion) gives each non-zero
+    class the next ladder budget."""
+    counts = np.asarray(cdf_counts.cpu() if isinstance(cdf_counts,
+                                                       torch.Tensor)
+                        else cdf_counts)
+    top = int(classes[-1])
+    if counts.shape[0] == len(classes) + 1:
+        need = int(counts[-1])
+        counts = counts[:-1]
+        while top < need and top < max_budget:
+            top = max(1, top * 2)
+    if top_headroom and top < max_budget:
+        top = max(1, top * 2)
+    boundaries = classes if top > int(classes[-1]) else classes[:-1]
+    segs = []
+    used = 0.0
+    for i, (c, cnt) in enumerate(zip(boundaries, counts[:len(boundaries)])):
+        f = max(0.0, np.floor(cnt / R * quant) - margin) / quant
+        f = min(f, 1.0 - 1.0 / quant)
+        if f > used:
+            if headroom and c > 0:
+                md = min(top, int(classes[i + 1]) if i + 1 < len(classes)
+                         else int(c) * 2)
+            else:
+                md = int(c)
+            segs.append((f - used, md))
+            used = f
+    segs.append((1.0 - used, top))
+    return tuple(segs)
+
+
+def _axis_windows(window) -> tuple:
+    """A dilation window as per-axis (wy, wx); an int is isotropic
+    (``accel.py:880-892``)."""
+    if isinstance(window, tuple):
+        return window
+    return (window, window)
+
+
+def _pool2d_max(img: torch.Tensor, wy: int, wx: int) -> torch.Tensor:
+    """Doubling roll-max with wrap-around (``accel.py:895-905``): the reach
+    per direction is window - 1."""
+    for axis, w in ((0, wy), (1, wx)):
+        k = 1
+        while k < w:
+            img = torch.maximum(img, torch.maximum(
+                torch.roll(img, k, axis), torch.roll(img, -k, axis)))
+            k *= 2
+    return img
+
+
+def dilate_hints(steps, nrec, skips=None, *, width: int, height: int,
+                 window):
+    """Max-dilate per-ray hints over the estimated silhouette sweep
+    (``accel.py:908-936``), so that rays on a moving silhouette class by
+    their neighbourhood's worst case.  ``window``: int or (wy, wx).
+    Returns (steps, nrec, skips or None), [H*W] each."""
+    wy, wx = _axis_windows(window)
+
+    def pool(a):
+        return _pool2d_max(torch.as_tensor(a).reshape(height, width),
+                           wy, wx).reshape(-1)
+    return pool(steps), pool(nrec), (None if skips is None else pool(skips))
+
+
+def dilate_packed(ph, *, width: int, height: int, window) -> torch.Tensor:
+    """One max dilation of packed hints (``accel.py:960-975``): the max of
+    packed keys is a lexicographic (nrec, steps, skips) max, so its nrec
+    field is exactly the window's nrec max."""
+    wy, wx = _axis_windows(window)
+    img = torch.as_tensor(ph).to(torch.int32).reshape(height, width)
+    return _pool2d_max(img, wy, wx).reshape(-1)
+
+
+def order_from_hints_device(steps, nrec, skips=None) -> tuple:
+    """(perm, inv) from the three-part key ``min(nrec, 15) << 18 |
+    min(steps, 511) << 9 | min(skips, 511)``, stable
+    (``accel.py:1178-1204``); the permutation equals JAX's."""
+    steps = torch.as_tensor(steps).to(torch.int32)
+    nrec = torch.as_tensor(nrec).to(torch.int32).to(steps.device)
+    skips = (torch.zeros_like(steps) if skips is None else
+             torch.as_tensor(skips).to(torch.int32).to(steps.device))
+    key = ((nrec.clamp_max(15) << 18) | (steps.clamp_max(511) << 9)
+           | skips.clamp_max(511))
+    return _argsort_stable(key)
+
+
+def order_from_ns_steps_device(nrec, steps) -> tuple:
+    """(perm, inv) for the guided collect's cost sort: key ``min(ns, 63)
+    << 12 | min(steps, 4095)``, stable (``accel.py:1207-1228``)."""
+    nrec = torch.as_tensor(nrec).to(torch.int32)
+    steps = torch.as_tensor(steps).to(torch.int32).to(nrec.device)
+    return _argsort_stable((nrec.clamp_max(63) << 12)
+                           | steps.clamp_max(4095))
 
 
 def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
@@ -726,8 +884,9 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
     Returns (img [H, W, 4] — or flat [R, 4] rows in ``perm`` order when
     ``sorted_output``, so ``img[inv]`` is the pixel-order frame —,
     seg_overflow i32 counts [n_segments][, split_vote, sample_vote when
-    ``need_votes``][, steps, nrec, skips when ``return_hints``]); votes and
-    hints in pixel order.
+    ``need_votes``][, steps, nrec, skips when ``return_hints``, or one
+    :func:`pack_hints` array when ``return_hints="packed"``, as in
+    ``accel.py:1480-1484``]); votes and hints in pixel order.
     """
     w, h = camera.width, camera.height
     R = w * h
@@ -746,7 +905,9 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
         out = (img, overflow.expand(len(segments)))
         if need_votes:
             out = out + tuple(res[3:5])
-        if return_hints:
+        if return_hints == "packed":
+            out = out + (pack_hints(res[2], res[-2], res[-1]),)
+        elif return_hints:
             out = out + (res[2], res[-2], res[-1])
         return out
     res = _frame_core(
@@ -759,6 +920,8 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
     out = (img, res["seg_overflow"])
     if need_votes:
         out = out + (res["split_vote"], res["sample_vote"])
-    if return_hints:
+    if return_hints == "packed":
+        out = out + (res["hints_packed"],)
+    elif return_hints:
         out = out + (res["steps"], res["nrec"], res["skips"])
     return out

@@ -12,7 +12,10 @@ On a CUDA tensor :func:`composite_results_compact_kernel` launches
 ``csrc/compact_composite.cu`` (one thread per ray walks its run); on a CPU
 tensor it runs :func:`composite_results_compact_reference`, which lays the
 runs out as a padded [R, max ns] view and composites with an exclusive
-``torch.cumprod``.  Depth mode is not ported yet.
+``torch.cumprod``.  Depth mode (``render_depth``) sums ``weight * T`` and
+writes ``min(0.3 * sum, 1)`` in grey, as the JAX package's XLA route does
+(``guided.py:706-707``, ``:724-726``): a branch of the same kernel that
+reads no view directions.
 """
 
 from __future__ import annotations
@@ -23,12 +26,9 @@ from .. import kernels
 from .sh import masked_sh_basis
 
 
-def _check_opt(opt, fmt_sh: bool, basis_dim: int) -> bool:
-    """Depth mode raises; returns whether the cache shades by SH."""
-    if opt.render_depth:
-        raise NotImplementedError(
-            "depth mode comes with the exact renderer port")
-    return bool(fmt_sh) and basis_dim >= 1
+def _use_sh(opt, fmt_sh: bool, basis_dim: int) -> bool:
+    """Whether the cache shades by SH (never in depth mode)."""
+    return bool(fmt_sh) and basis_dim >= 1 and not opt.render_depth
 
 
 def composite_results_compact_kernel(res_c, z_c, ray_of_p, offs, ns,
@@ -38,8 +38,8 @@ def composite_results_compact_kernel(res_c, z_c, ray_of_p, offs, ns,
     ``vdirs_c``; the arguments of ``composite_results_compact_pallas``.
     ``ray_of_p`` [M] (the ray of each row) is implied by ``offs``/``ns``
     and not read.  ``vdirs_c`` may be None for a cache that does not
-    shade by SH.  Returns [R, 4] rgba with alpha 1."""
-    use_sh = _check_opt(opt, fmt_sh, basis_dim)
+    shade by SH, and in depth mode.  Returns [R, 4] rgba with alpha 1."""
+    use_sh = _use_sh(opt, fmt_sh, basis_dim)
     if res_c.device.type == "cpu":
         return composite_results_compact_reference(
             res_c, z_c, ray_of_p, offs, ns, vdirs_c, opt, basis_dim, fmt_sh)
@@ -47,7 +47,8 @@ def composite_results_compact_kernel(res_c, z_c, ray_of_p, offs, ns,
         res_c.float().contiguous(), z_c.float().contiguous(),
         offs.to(torch.int32).contiguous(), ns.to(torch.int32).contiguous(),
         vdirs_c.float().contiguous() if use_sh else None, basis_dim, use_sh,
-        opt.basis_minmax[0], opt.basis_minmax[1])
+        opt.basis_minmax[0], opt.basis_minmax[1],
+        depth=bool(opt.render_depth))
 
 
 def composite_results_compact_reference(res_c, z_c, ray_of_p, offs, ns,
@@ -59,8 +60,9 @@ def composite_results_compact_reference(res_c, z_c, ray_of_p, offs, ns,
     exclusive transmittance as a shifted ``cumprod`` (no division, so an
     opaque sample's ``wc == 0`` gives T = 0 after it, not NaN), weight T on
     the last sample and ``T * (1 - wc)`` before it, masked SH from the
-    sample's view direction, sigmoid, and a masked sum."""
-    use_sh = _check_opt(opt, fmt_sh, basis_dim)
+    sample's view direction, sigmoid, and a masked sum.  Depth mode sums
+    ``weight * T`` and writes ``min(0.3 * sum, 1)`` to rgb."""
+    use_sh = _use_sh(opt, fmt_sh, basis_dim)
     M, out_dim = res_c.shape
     R = ns.shape[0]
     dev = res_c.device
@@ -86,6 +88,10 @@ def composite_results_compact_reference(res_c, z_c, ray_of_p, offs, ns,
     zero = torch.zeros((), dtype=f32, device=dev)
     weight = torch.where(is_last & valid, T,
                          torch.where(valid, T * (1.0 - wc), zero))
+    if opt.render_depth:
+        d = torch.where(valid, weight * T, zero).sum(1)
+        rgb = torch.clamp_max(d * 0.3, 1.0)[:, None].expand(R, 3)
+        return torch.cat([rgb, torch.ones((R, 1), dtype=f32, device=dev)], 1)
     if use_sh:
         B = basis_dim
         basis = masked_sh_basis(B, vdirs_c[idx].to(f32).reshape(-1, 3),

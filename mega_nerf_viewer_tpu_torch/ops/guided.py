@@ -542,8 +542,8 @@ def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
     :func:`_composite_frame_compact`, which shades with this frame's view
     directions.  A padded cache (``collect_and_query``) goes to the padded
     compositor with this frame's view directions (``guided.py:1144-1151``),
-    in depth mode too.  Depth mode on a compact cache is not ported yet
-    and raises."""
+    in depth mode too.  Depth mode on a compact cache goes to the compact
+    compositor's depth branch, which needs no view directions."""
     fmt_sh = tree.data_format.format == "SH"
     if "results_c" not in cache:
         transform = torch.as_tensor(camera.transform, dtype=torch.float32,
@@ -555,20 +555,20 @@ def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
                                 cache["num_samples"], vdirs, opt,
                                 tree.data_format.basis_dim, fmt_sh)
         return out.reshape(camera.height, camera.width, 4)
-    if opt.render_depth:
-        raise NotImplementedError(
-            "depth mode on the compact guided cache is not ported yet")
     basis_dim = tree.data_format.basis_dim
     # a sorted-order cache carries the pixel restore; its per-ray inputs
     # must use the sorted counts
     ns_comp = cache.get("num_samples_sorted", cache["num_samples"])
     inv = cache.get("order_inv")
-    if (fmt_sh and cache.get("vdirs_c") is not None
+    if opt.render_depth or (
+            fmt_sh and cache.get("vdirs_c") is not None
             and ("vdirs_sig" not in cache
                  or cache["vdirs_sig"] == _viewdir_signature(camera, opt))):
         out = composite_results_compact_kernel(
             cache["results_c"], cache["z_c"], cache["ray_of_p"],
-            cache["offs"], ns_comp, cache["vdirs_c"], opt, basis_dim, fmt_sh)
+            cache["offs"], ns_comp,
+            None if opt.render_depth else cache["vdirs_c"], opt, basis_dim,
+            fmt_sh)
         if inv is not None:
             out = out[inv]
         return out.reshape(camera.height, camera.width, 4)

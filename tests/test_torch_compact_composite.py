@@ -141,13 +141,23 @@ def test_compact_rgba_format_and_empty_rays():
 
 
 def test_compact_depth_mode_and_cpu_dispatch():
+    """Depth mode (``guided.py:706-707``, ``:724-726``) against JAX's
+    ``composite_results_compact`` with ``render_depth``, within 1e-6, with
+    or without view directions (depth reads none); then the CPU dispatch."""
     rng = np.random.RandomState(5)
     res_c, z, ray_of_p, offs, ns, vdirs = _compact_data(rng, basis_dim=4)
     args = [torch.as_tensor(a) for a in (res_c, z, ray_of_p, offs, ns)]
     vd = torch.as_tensor(vdirs[ray_of_p])
-    with pytest.raises(NotImplementedError):
-        PC.composite_results_compact_kernel(
-            *args, vd, PRenderOptions(render_depth=True), 4, True)
+    for fmt_sh in (True, False):
+        want = _jax((res_c, z, ray_of_p, offs, ns), vdirs,
+                    RenderOptions(render_depth=True), 4, fmt_sh)
+        for v in (vd, None):
+            got = PC.composite_results_compact_kernel(
+                *args, v, PRenderOptions(render_depth=True), 4, fmt_sh)
+            _check(got.numpy(), want)
+        assert (want[:, 3] == 1).all() and (want[ns == 0, :3] == 0).all()
+        assert np.array_equal(want[:, 0], want[:, 2])
+        assert want[:, 0].max() > 0
     before = dict(kernels.LAUNCHES)
     a = PC.composite_results_compact_kernel(*args, vd, PRenderOptions(), 4,
                                             True)

@@ -327,14 +327,34 @@ def test_composite_route_gate_on_viewdir_change():
 
 
 def test_composite_frame_not_ported_yet(scene, unordered):
-    """Depth mode on the compact cache is still not ported and raises; the
-    padded cache, which raised before the refinement slice, now goes to
-    the padded compositor and matches JAX's frame on JAX's own cache."""
+    """Both caches in depth mode, which raised before: the compact cache
+    (unordered and in sorted order) goes to the compact compositor's depth
+    branch and matches JAX's ``composite_frame`` within 1e-5; the padded
+    cache goes to the padded compositor and matches JAX's frame on JAX's
+    own cache."""
     s = scene
-    _, p = unordered
-    with pytest.raises(NotImplementedError):
-        PG.composite_frame(s["pt"], s["pcam"],
-                           s["popt"].replace(render_depth=True), p)
+    j, p = unordered
+    depth_j, depth_p = (o.replace(render_depth=True)
+                        for o in (s["opt"], s["popt"]))
+    caches = [(j, p)]
+    order = PA.order_from_hints(p["collect_steps"], p["num_samples"])
+    jorder = JA.order_from_hints(np.asarray(j["collect_steps"]),
+                                 np.asarray(j["num_samples"]))
+    caches.append((
+        JG.collect_and_query_fast(s["jt"], s["jlm"], s["jm"], s["jcam"],
+                                  s["opt"], chunk_size=CS,
+                                  skip_table=s["jtab"], order=jorder),
+        PG.collect_and_query_fast(s["pt"], s["plm"], s["pm"], s["pcam"],
+                                  s["popt"], chunk_size=CS,
+                                  skip_table=s["ptab"], order=order)))
+    for jc_, pc_ in caches:
+        want = np.asarray(JG.composite_frame(s["jt"], s["jcam"], depth_j,
+                                             jc_))
+        got = PG.composite_frame(s["pt"], s["pcam"], depth_p, pc_)
+        err = float(np.abs(got.numpy() - want).max())
+        print(f"compact depth frame: max abs diff {err:.3e}")
+        assert err <= PIX_TOL
+        assert float(want[..., 0].max()) > 0 and (want[..., 3] == 1).all()
     jc, _ = JG.collect_and_query(s["jt"], s["jm"], s["jcam"], s["opt"])
     padded = {k: torch.tensor(np.asarray(v)) for k, v in jc.items()}
     for depth in (False, True):

@@ -24,7 +24,13 @@ def test_import_leaves_out_jax():
             "mega_nerf_viewer_tpu_torch.ops.padded_composite, "
             "mega_nerf_viewer_tpu_torch.ops.refine, "
             "mega_nerf_viewer_tpu_torch.ops.render, "
-            "mega_nerf_viewer_tpu_torch.models\n"
+            "mega_nerf_viewer_tpu_torch.models, "
+            "mega_nerf_viewer_tpu_torch.viewer, "
+            "mega_nerf_viewer_tpu_torch.api, "
+            "mega_nerf_viewer_tpu_torch.cli, "
+            "mega_nerf_viewer_tpu_torch.utils.png, "
+            "mega_nerf_viewer_tpu_torch.utils.metrics, "
+            "mega_nerf_viewer_tpu_torch.probes.gather_probe\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
             "or m.startswith('mega_nerf_viewer_tpu.')]\n"
@@ -54,7 +60,10 @@ def test_no_source_imports_jax():
             os.path.join("ops", "padded_composite.py"),
             os.path.join("ops", "refine.py"),
             os.path.join("ops", "render.py"),
-            os.path.join("models", "meganerf.py")} <= names
+            os.path.join("models", "meganerf.py"), "viewer.py", "api.py",
+            "cli.py", os.path.join("utils", "png.py"),
+            os.path.join("utils", "metrics.py"),
+            os.path.join("probes", "gather_probe.py")} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -73,7 +82,9 @@ def test_import_pattern_is_strict():
 
 def _entry_points():
     import mega_nerf_viewer_tpu_torch as P
+    from mega_nerf_viewer_tpu_torch import api, cli
     from mega_nerf_viewer_tpu_torch.ops import accel
+    from mega_nerf_viewer_tpu_torch.probes import gather_probe
     from mega_nerf_viewer_tpu_torch.utils.tuning import device_tuning
     fixture = os.path.join(REPO, "tests", "fixtures", "digger_sh4.npz")
     return [
@@ -85,10 +96,14 @@ def _entry_points():
         lambda: P.MegaNeRFModel.synthetic(),
         lambda: P.MegaNeRFModel.from_torchscript(
             os.path.join(REPO, "tests", "fixtures", "meganerf_8x64.pt")),
+        lambda: P.Viewer(),
+        lambda: api.load_tree(fixture),
+        lambda: cli.main([fixture, "-w", "8", "--height", "8"]),
+        lambda: gather_probe.main(["11"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(11))
 def test_entry_point_without_device_needs_a_card(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -109,6 +124,9 @@ def test_kernels_refuse_cpu_tensors():
                                   torch.zeros(4, dtype=torch.int32),
                                   torch.zeros(4, dtype=torch.int32),
                                   torch.zeros((8, 3)), 1, True, 0, 24)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.gather_chunk_sums(torch.zeros((16, 8), dtype=torch.int32),
+                                  torch.zeros(2048, dtype=torch.int32))
     assert kernels.LAUNCHES == before     # a refused call launched nothing
 
 

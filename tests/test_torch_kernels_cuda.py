@@ -363,3 +363,60 @@ def test_refinement_on_card_matches_cpu(cuda):
     ulp = (tc.data.view(torch.int16).int()
            - tg.data.cpu().view(torch.int16).int()).abs()
     assert int(ulp.max()) <= 1
+
+
+# ----------------------------------------------------------------------
+# The Viewer slice: kernel H (the row-gather probe), kernel D's depth
+# mode, and the Viewer's parked frame on the card.
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("W", [8, 128, 3])
+def test_gather_probe_kernel_bit_equal(cuda, W):
+    from mega_nerf_viewer_tpu_torch.probes import gather_probe as gp
+    g = torch.Generator(device=cuda).manual_seed(W)
+    M, N = 1 << 14, 1 << 15
+    table = torch.randint(0, 1 << 20, (M, W), generator=g, device=cuda,
+                          dtype=torch.int32)
+    idx = torch.randint(0, M, (N,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = kernels.LAUNCHES["gather_chunk_sums"]
+    got = gp.gather_chunk_sums(table, idx)
+    assert kernels.LAUNCHES["gather_chunk_sums"] == before + 1
+    assert torch.equal(got, gp.gather_chunk_sums_reference(table, idx))
+    assert torch.equal(got, gp.gather_chunk_sums_library(table, idx))
+
+
+@pytest.mark.parametrize("basis_dim,fmt_sh", [(9, True), (1, False)])
+def test_compact_composite_depth_matches_plain(cuda, basis_dim, fmt_sh):
+    """Kernel D's depth branch against its plain version within 1e-6."""
+    from mega_nerf_viewer_tpu_torch.ops import compact_composite as cc
+    args = _compact_cache(cuda, basis_dim, opaque=True)
+    opt = P.RenderOptions(render_depth=True)
+    before = kernels.LAUNCHES["compact_composite_depth"]
+    ok = cc.composite_results_compact_kernel(*args, opt, basis_dim, fmt_sh)
+    assert kernels.LAUNCHES["compact_composite_depth"] == before + 1
+    op = cc.composite_results_compact_reference(*args, opt, basis_dim,
+                                                fmt_sh)
+    assert bool(torch.isfinite(ok).all())
+    assert float((ok - op).abs().max()) <= 1e-6
+    assert float(ok[:, 0].max()) > 0
+
+
+def test_viewer_parked_frame_matches_direct_frame(cuda):
+    """A card Viewer's parked frames equal the direct segmented frame on
+    the Viewer's own order and segments, and launch kernels A and B."""
+    tree = P.sphere_tree(basis_dim=4, depth=5, device=cuda)
+    cam = P.Camera(96, 80, 70.0)
+    cam.center = np.array([-1.3, 0.2, 1.2], np.float32)
+    v = P.Viewer(tree, camera=cam)
+    v.fast_chunk_size = 512
+    v.render()                                   # the hint frame
+    kernels.reset_launch_counts()
+    img = v.render(fetch=False)
+    assert kernels.LAUNCHES["march"] > 0
+    assert kernels.LAUNCHES["skip_prepass"] > 0
+    direct = P.render_frame_fast_segmented(
+        tree, v._leaf_map, cam, v.options, order=v._ray_order,
+        segments=tuple(v._segments), chunk_size=512,
+        skip_table=v._skip_table)[0]
+    assert torch.equal(img, direct)
+    assert v.get_backend() == "CUDA"
