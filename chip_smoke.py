@@ -106,6 +106,11 @@ THROUGHPUT_CAPACITY = 400_000
 THROUGHPUT_ITERS = 5
 # kernel G's synthetic cache: rays, S (the default max_guided_samples), basis
 PADDED_SYNTH = (1 << 17, 128, 9)
+# kernels B's and G's device ms in their first designs (one thread per
+# ray), as PERF.md records them for an NVIDIA H100 80GB HBM3 at 700 W;
+# printed beside this run's
+FIRST_DESIGN_MS = {"skip_prepass": 0.1326, "padded_composite real": 0.4694,
+                   "padded_composite synthetic": 1.0098}
 
 
 def log(*a):
@@ -277,7 +282,9 @@ def main():
         PREPASS_OPS_PER_STEP * skips_total)
     log(f"kernel skip_prepass: bit-equal over {n_pad} rays, "
         f"{skips_total} skips; {ms_b:.4f} ms on the device ({by_b}; plain "
-        f"{plain_b:.2f} ms, bound {bb:.4f} ms by {bb_by})")
+        f"{plain_b:.2f} ms, bound {bb:.4f} ms by {bb_by}; "
+        f"{100 * bb / ms_b:.0f}% of the bound; the first design "
+        f"{FIRST_DESIGN_MS['skip_prepass']} ms)")
     report.append(dict(
         name="skip_prepass", route="cuda",
         source="mega_nerf_viewer_tpu_torch/csrc/skip_prepass.cu",
@@ -882,6 +889,46 @@ def padded_bound(res, ns, B):
                     (COMPOSITE_OPS + 6 * B) * valid)
 
 
+def padded_frame_steps(kernels, dev, cam, opt, cache, comp_ms):
+    """Where the padded frame's time goes: each step of ``composite_frame``
+    on the padded cache run alone, back to back (CUDA events, so each
+    step's host launch time counts where it exceeds its device time), and
+    the frame's rest.  The cache is f32 and contiguous as built, so the
+    wrapper's ``float().contiguous()`` copies nothing (checked)."""
+    from mega_nerf_viewer_tpu_torch.ops import padded_composite as pc
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, screen2worlddir
+    from mega_nerf_viewer_tpu_torch.ops.sh import masked_sh_basis
+    res, z, ns = cache["results"], cache["z_vals"], cache["num_samples"]
+    check(res.float().contiguous().data_ptr() == res.data_ptr()
+          and z.float().contiguous().data_ptr() == z.data_ptr()
+          and ns.dtype == torch.int32 and ns.is_contiguous(),
+          "the padded cache is copied on every frame")
+    transform = torch.as_tensor(cam.transform, dtype=torch.float32,
+                                device=dev)
+    dirs, _ = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy,
+                              transform)
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+    basis = masked_sh_basis(1, vdirs, *opt.basis_minmax).contiguous()
+    steps = {
+        "transform upload": lambda: torch.as_tensor(
+            cam.transform, dtype=torch.float32, device=dev),
+        "screen2worlddir": lambda: screen2worlddir(
+            WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy, transform),
+        "rodrigues": lambda: rodrigues(opt.rot_dirs, dirs),
+        "masked_sh_basis": lambda: masked_sh_basis(
+            1, vdirs, *opt.basis_minmax).contiguous(),
+        "padded_composite (kernel G)": lambda: kernels.padded_composite(
+            res, z, ns, basis, pc.MODE_SH),
+    }
+    ms = {k: uncounted(kernels, lambda f=f: cuda_ms(f, N_FRAMES))
+          for k, f in steps.items()}
+    rest = comp_ms - sum(ms.values())
+    log("padded frame steps (each alone, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; sum {sum(ms.values()):.3f} of {comp_ms:.3f} ms/frame, rest "
+        f"{rest:.3f}")
+
+
 def small_refinement(P, dev):
     """Phase 14: two expands, a resample, a visit-tracked exact frame and
     a prune of a small tree, on the card and on the CPU from the same
@@ -1191,6 +1238,7 @@ def refine_phases(P, kernels, dev, report):
         f"{[round(r, 3) for r in rounds]})")
     profile_frames(invalidate, inval_ms, n=1, what="invalidation")
     profile_frames(frame, comp_ms, what="padded frame")
+    padded_frame_steps(kernels, dev, cam, opt, cache, comp_ms)
     tree, tracker = edit(tree, tracker, rres.split_vote, rres.sample_vote,
                          "guided frame")
 
@@ -1256,7 +1304,9 @@ def refine_phases(P, kernels, dev, report):
             *c, o, B, True), 2)
         bg, bg_by = padded_bound(c[0], c[2], B)
         log(f"kernel padded_composite ({name}): {ms:.4f} ms on the device "
-            f"({by}; plain {plain:.2f} ms, bound {bg:.4f} ms by {bg_by})")
+            f"({by}; plain {plain:.2f} ms, bound {bg:.4f} ms by {bg_by}; "
+            f"{100 * bg / ms:.0f}% of the bound; the first design "
+            f"{FIRST_DESIGN_MS['padded_composite ' + name]} ms)")
         if name == "real":
             times = dict(ms=ms, ms_by=by, plain_ms=plain, bound_ms=bg,
                          bound_by=bg_by, library_ms=None)

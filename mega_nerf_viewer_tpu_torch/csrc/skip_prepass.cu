@@ -5,26 +5,36 @@
 // march reaches its first cell that is not an empty leaf of depth <= 6
 // (bit-equal to the march's own t there), and the number of steps taken.
 //
-// What bounds it on an H100: the rays' own bytes.  Each ray reads d and
-// invdir (24 B), tmin, tmax (8 B) and live (1 B) and writes t and the count
-// (8 B); the table is 40 KB and the step math is a few dozen f32 ops per
-// skipped leaf, far below the card's f32 rate.  At 1080p that is ~85 MB,
-// ~25 us at 3.35 TB/s.
+// What bounds it on an H100: by the usual count, the rays' own bytes.  Each
+// ray reads d and invdir (24 B), tmin, tmax (8 B) and live (1 B) and writes
+// t and the count (8 B); the table is 40 KB.  At 1080p that is ~85 MB,
+// ~25 us at 3.35 TB/s, against ~13.7M steps of a few dozen f32 ops, ~10 us
+// at the f32 FMA rate.  What holds it above that: the instructions of each
+// step, whose float-to-int conversions and roundings (cell indices, the
+// exit distance's floors) issue at a quarter of the FMA rate, and the lanes
+// of a warp that idle once their ray has stopped while the slowest ray of
+// the 32 still walks.
 //
-// Design: one thread per ray.  The table's three planes (level-4 nibbles,
-// level-5 and level-6 bits; layout in ops/skip_prepass.py) live in static
-// shared memory, loaded once per block, and each lookup reads its word by
-// index.  That replaces the TPU kernel's broadcast + lane-gather + select
-// chain over the table rows, its any-lane branch around the level-6 plane
-// and its loop unrolling: here each thread reads the level-6 word only on
-// the steps where levels 4 and 5 did not skip, and leaves its loop as soon
-// as its own ray stops.  Rays are read as [R, 3] and [R] arrays, with no
-// 128-lane planes and no padding.
+// Design, from the time breakdown of probes/prepass_breakdown.py: one
+// thread per ray in 256-thread blocks, no shared memory.  The first design
+// copied the 40 KB table into shared memory in every block (8,104 copies,
+// 332 MB through L2 at 1080p), which took most of its time; a persistent
+// grid that copies it once per resident block measured slower than no
+// copy at all, as did the other persistent forms PERF.md lists (TMA bulk
+// copies, a ray counter, lanes that refill from a pool).  So the table is
+// read in place through the read-only data cache (__ldg): it comes from
+// device memory into L2 once and into an SM's L1 while it stays resident
+// there, and the block scheduler balances the rays' uneven step counts.  The step is the
+// march's, unchanged (clip_pos, cell_index, leaf_exit, pow2f from
+// common.cuh; -fmad=false and one __fmaf_rn in cen + t * d), so t stays
+// bit-equal to the march it skips for.  The three planes (layout in
+// ops/skip_prepass.py) are read by index, in place of the TPU kernel's
+// broadcast + lane-gather + select chain, and level 6 only on the steps
+// where levels 4 and 5 did not skip.
 #include "common.cuh"
 
 namespace mnv {
 
-constexpr int kTableWords = 80 * 128;   // 40 KB, under the 48 KB static cap
 constexpr int kBase5 = 8 * 128;
 constexpr int kBase6 = 16 * 128;
 
@@ -37,12 +47,8 @@ skip_prepass_kernel(const int* __restrict__ table,
                     const float* __restrict__ tmax,
                     const bool* __restrict__ live, float step_size, int R,
                     float* __restrict__ t_out, int* __restrict__ skips_out) {
-  __shared__ int tab[kTableWords];
-  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-
   const float cx = cen[0], cy = cen[1], cz = cen[2];
   const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
   const float ix = invdir[3 * r], iy = invdir[3 * r + 1],
@@ -56,14 +62,15 @@ skip_prepass_kernel(const int* __restrict__ table,
     const float py = clip_pos(cy, t, dy);
     const float pz = clip_pos(cz, t, dz);
     const int idx4 = cell_index(px, py, pz, 16);
-    const int nib = (tab[idx4 >> 3] >> ((idx4 & 7) * 4)) & 15;
+    const int nib = (__ldg(table + (idx4 >> 3)) >> ((idx4 & 7) * 4)) & 15;
     const bool skip4 = (nib & 8) != 0;
     const int idx5 = cell_index(px, py, pz, 32);
-    const bool bit5 = ((tab[kBase5 + (idx5 >> 5)] >> (idx5 & 31)) & 1) != 0;
+    const bool bit5 =
+        ((__ldg(table + kBase5 + (idx5 >> 5)) >> (idx5 & 31)) & 1) != 0;
     bool bit6 = false;
     if (!skip4 && !bit5) {
       const int idx6 = cell_index(px, py, pz, 64);
-      bit6 = ((tab[kBase6 + (idx6 >> 5)] >> (idx6 & 31)) & 1) != 0;
+      bit6 = ((__ldg(table + kBase6 + (idx6 >> 5)) >> (idx6 & 31)) & 1) != 0;
     }
     if (!(skip4 || bit5 || bit6)) break;
     const int depth = skip4 ? (nib & 7) : (bit5 ? 5 : 6);

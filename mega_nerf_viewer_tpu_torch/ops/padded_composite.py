@@ -9,7 +9,7 @@ slots ``[0, ns[r])`` of ``results`` [R, S, out_dim] and ``z_vals``
 [R, S]; the slots past ``ns[r]`` are padding.
 
 On a CUDA tensor :func:`composite_results_padded` launches
-``csrc/padded_composite.cu`` (one thread per ray walks its valid slots);
+``csrc/padded_composite.cu`` (a tile of lanes per ray scans its valid slots);
 on a CPU tensor it runs :func:`composite_results_padded_reference`, the
 XLA formula with an exclusive ``torch.cumprod``.  Both cover the three
 branches of ``guided.composite_results``: SH shading from the ray's view

@@ -18,7 +18,7 @@ so the march starts at a bit-equal ``t``:
 
 The table keeps the JAX layout, i32 ``[80, 128]``.  On a CUDA tensor
 :func:`entry_skip_prepass` launches ``csrc/skip_prepass.cu`` (one thread
-per ray, the table in shared memory); on a CPU tensor it runs
+per ray, the table through the read-only cache); on a CPU tensor it runs
 :func:`entry_skip_prepass_reference`, the same steps as torch ops.
 Vote frames must not use the prepass (the reference's fallback vote
 inspects empty leaves).

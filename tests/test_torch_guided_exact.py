@@ -164,3 +164,24 @@ def test_padded_frame_after_rot_dirs_uses_frame_directions():
     want = np.asarray(JG.composite_frame(jt, jcam, o, jc))
     assert not torch.equal(got, base)
     assert float(np.abs(got.numpy() - want).max()) <= PIX_TOL
+
+
+def test_padded_cache_is_built_f32_contiguous():
+    """``collect_and_query`` builds the padded cache f32 and contiguous with
+    i32 counts, so the compositor's ``float().contiguous()`` and
+    ``to(int32)`` copy nothing per frame; a cache handed over in another
+    layout composites to the same frame."""
+    _, pt, _, pm = _scene("sphere")
+    popt = port_opt(RenderOptions(max_guided_samples=16, need_viewdir=True))
+    _, pcam = _cams()
+    pc, _ = P.collect_and_query(pt, pm, pcam, popt)
+    res, z, ns = pc["results"], pc["z_vals"], pc["num_samples"]
+    assert res.dtype == z.dtype == torch.float32 and ns.dtype == torch.int32
+    assert res.is_contiguous() and z.is_contiguous() and ns.is_contiguous()
+    assert res.float().contiguous().data_ptr() == res.data_ptr()
+    assert z.float().contiguous().data_ptr() == z.data_ptr()
+    frame = P.composite_frame(pt, pcam, popt, pc)
+    other = dict(pc, results=res.transpose(0, 1).contiguous().transpose(0, 1),
+                 z_vals=z.t().contiguous().t(), num_samples=ns.long())
+    assert not other["results"].is_contiguous()
+    assert torch.equal(P.composite_frame(pt, pcam, popt, other), frame)

@@ -6,7 +6,9 @@ as int32, integers equal); the march's integers are equal and its rgba
 within 1e-6 (the kernel sums shaded samples in order, the plain version
 reduces the record buffer; both round each op alike); the compact
 compositor within 1e-6 (a running product along the ray against a
-cumprod and a masked sum).
+cumprod and a masked sum); the padded compositor within 1e-6 (a product
+scan in tiles of 8 lanes and a butterfly sum against a cumprod and a
+masked sum).
 """
 
 import numpy as np
@@ -43,18 +45,46 @@ def _scene(cuda, depth, level=None):
     return tree, lm, table, m
 
 
-@pytest.mark.parametrize("depth", [4, 7])
-def test_prepass_kernel_bit_equal(cuda, depth):
-    _, _, table, m = _scene(cuda, depth)
-    args = (table, m.cen, m.d, m.invdir, m.tmin, m.tmax, ~m.miss,
-            m.step_size)
+def _prepass_case(cuda, case):
+    """Prepass inputs at the kernel's edges: the 96x80 rays of a depth-4 or
+    depth-7 sphere (under one resident wave of blocks), one ray, a count
+    that is not a multiple of the block, the rays tiled past one resident
+    wave, every ray dead, and rays whose tmax ends inside the entry skip."""
+    _, _, table, m = _scene(cuda, 4 if case == "depth4" else 7)
+    args = [m.cen, m.d, m.invdir, m.tmin, m.tmax, ~m.miss]
+    if case == "one_ray":
+        _, sk = sp.entry_skip_prepass_reference(table, *args, m.step_size)
+        k = int(sk.argmax())
+        args = args[:1] + [a[k:k + 1] for a in args[1:]]
+    elif case == "ragged":
+        args = args[:1] + [a[:7681 - 2 * 512].contiguous() for a in args[1:]]
+    elif case == "past_one_wave":
+        args = args[:1] + [torch.cat([a] * 60) for a in args[1:]]
+    elif case == "all_dead":
+        args[5] = torch.zeros_like(args[5])
+    elif case == "tmax_in_skip":
+        args[4] = torch.where(args[5], args[3] + 0.01, args[4])
+    return [table] + args + [m.step_size]
+
+
+@pytest.mark.parametrize("case", ["depth4", "depth7", "one_ray", "ragged",
+                                  "past_one_wave", "all_dead",
+                                  "tmax_in_skip"])
+def test_prepass_kernel_bit_equal(cuda, case):
+    args = _prepass_case(cuda, case)
     before = kernels.LAUNCHES["skip_prepass"]
     tk, sk = kernels.skip_prepass(*args)
     assert kernels.LAUNCHES["skip_prepass"] == before + 1
     tp, sp_ = sp.entry_skip_prepass_reference(*args)
+    torch.cuda.synchronize()
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
     assert torch.equal(sk, sp_)
-    assert int(sk.sum()) > 0
+    if case == "all_dead":
+        assert int(sk.sum()) == 0 and torch.equal(tk, args[4])
+    else:
+        assert int(sk.sum()) > 0
+    if case == "tmax_in_skip":
+        assert bool((args[6] & (sk > 0) & (tk >= args[5])).any())
 
 
 @pytest.mark.parametrize("max_dense", [16, 2, 0])
@@ -270,28 +300,36 @@ def test_exact_collect_kernel_matches_plain(cuda, S):
     assert int(ok[2].sum()) > 0
 
 
-@pytest.mark.parametrize("basis_dim,fmt_sh,depth_mode", [
-    (1, True, False), (9, True, False), (9, True, True), (1, False, False)])
-def test_padded_composite_kernel_matches_plain(cuda, basis_dim, fmt_sh,
-                                               depth_mode):
+@pytest.mark.parametrize("S", [1, 7, 8, 9, 32, 33, 128])
+@pytest.mark.parametrize("out_dim,basis_dim", [(4, 1), (5, 1), (28, 9)])
+@pytest.mark.parametrize("mode", ["sh", "depth", "rgb"])
+def test_padded_composite_kernel_matches_plain(cuda, S, out_dim, basis_dim,
+                                               mode):
+    """Kernel G against its plain version within 1e-6, on rays with 0 and
+    with S valid slots and opaque samples."""
     from mega_nerf_viewer_tpu_torch.ops import padded_composite as pc
-    rng = np.random.RandomState(basis_dim)
-    R, S, out_dim = 3001, 32, 3 * basis_dim + 2
+    rng = np.random.RandomState(S + out_dim)
+    R = 3001
+    sidx = min(3, out_dim - 1)
     ns = rng.randint(0, S + 1, R).astype(np.int32)
+    ns[:50], ns[50:100] = 0, S
     res = rng.randn(R, S, out_dim).astype(np.float32)
-    res[..., min(3, out_dim - 1)] = np.abs(res[..., min(3, out_dim - 1)]) * 3
-    res[::7, 0, min(3, out_dim - 1)] = 1e8          # opaque first samples
+    res[..., sidx] = np.abs(res[..., sidx]) * 3
+    res[::7, 0, sidx] = 1e8                         # opaque first samples
+    res[3::11, S // 2, sidx] = 1e8                  # and mid-ray ones
     z = np.sort(rng.rand(R, S).astype(np.float32) * 2, axis=1)
     vd = rng.randn(R, 3).astype(np.float32)
     vd /= np.linalg.norm(vd, axis=1, keepdims=True)
     args = [torch.as_tensor(a, device=cuda) for a in (res, z, ns, vd)]
-    opt = P.RenderOptions(render_depth=depth_mode, basis_minmax=(0, 24))
+    opt = P.RenderOptions(render_depth=mode == "depth", basis_minmax=(0, 24))
+    fmt_sh = mode != "rgb"
     before = kernels.LAUNCHES["padded_composite"]
     ok = pc.composite_results_padded(*args, opt, basis_dim, fmt_sh)
     assert kernels.LAUNCHES["padded_composite"] == before + 1
     op = pc.composite_results_padded_reference(*args, opt, basis_dim, fmt_sh)
     assert bool(torch.isfinite(ok).all())
     assert float((ok - op).abs().max()) <= 1e-6
+    assert bool((ok[:50] == torch.tensor([0.0, 0, 0, 1], device=cuda)).all())
 
 
 @pytest.mark.parametrize("depth_mode", [False, True])

@@ -147,3 +147,65 @@ def test_pow2_f32_exact():
     np.testing.assert_array_equal(pow2_f32(d).numpy(),
                                   (2.0 ** np.arange(-20, 31)).astype(
                                       np.float32))
+
+
+def _edge_rays(case):
+    """Rays of the sphere7_48 scene cut to the kernel's edge cases: every
+    ray dead, one ray, rays whose tmax ends inside the entry skip, and
+    a ragged count with dead rays mixed in."""
+    jt = SCENES["sphere7_48"][0]()
+    cen, d, invdir, tmin, tmax, live = (np.array(a) for a in
+                                        _rays(jt, *SCENES["sphere7_48"][1]))
+    if case == "all_dead":
+        live[:] = False
+    elif case == "one_ray":
+        # the ray with the most skips
+        tab = np.array(JM.build_skip_table(jt, RenderOptions().sigma_thresh))
+        _, skips = PM.entry_skip_prepass_reference(
+            torch.as_tensor(tab), *(torch.as_tensor(a) for a in
+                                    (cen, d, invdir, tmin, tmax, live)),
+            float(RenderOptions().step_size))
+        k = int(skips.argmax())
+        d, invdir, tmin, tmax, live = (a[k:k + 1] for a in
+                                       (d, invdir, tmin, tmax, live))
+    elif case == "end_inside_skip":
+        # tmax a little past tmin: the ray stops while still skipping
+        tmax = np.where(live, tmin + np.float32(0.01), tmax).astype(
+            np.float32)
+    elif case == "ragged_dead":
+        # the last 1001 rays, which hold the frame's skipping rays
+        d, invdir, tmin, tmax, live = (a[-1001:].copy() for a in
+                                       (d, invdir, tmin, tmax, live))
+        live[::3] = False
+    return jt, (cen, d, invdir, tmin, tmax, live)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "one_ray", "end_inside_skip",
+                                  "ragged_dead"])
+def test_prepass_edge_inputs_bit_equal(case):
+    """The plain prepass against the Pallas kernel on the kernel's edge
+    inputs: t bit-equal, skips equal."""
+    jt, args = _edge_rays(case)
+    opt = RenderOptions()
+    tab = np.array(JM.build_skip_table(jt, opt.sigma_thresh))
+    step = np.float32(opt.step_size)
+    tj, sj = JM.entry_skip_prepass(jnp.asarray(tab),
+                                   *(jnp.asarray(a) for a in args), step,
+                                   with_count=True)
+    tp, sp = PM.entry_skip_prepass(torch.as_tensor(tab),
+                                   *(torch.as_tensor(a) for a in args),
+                                   float(step))
+    tj, sj = np.asarray(tj), np.asarray(sj)
+    np.testing.assert_array_equal(tp.numpy().view(np.int32),
+                                  tj.view(np.int32))
+    np.testing.assert_array_equal(sp.numpy(), sj)
+    live = args[-1]
+    if case == "all_dead":
+        assert int(sp.sum()) == 0
+        np.testing.assert_array_equal(tp.numpy(), args[3])
+    else:
+        assert int(sp.sum()) > 0
+    if case == "end_inside_skip":
+        # some rays ran out of [tmin, tmax] while still skipping
+        assert (live & (sp.numpy() > 0) & (tp.numpy() >= args[4])).any()
+
