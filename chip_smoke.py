@@ -106,11 +106,14 @@ THROUGHPUT_CAPACITY = 400_000
 THROUGHPUT_ITERS = 5
 # kernel G's synthetic cache: rays, S (the default max_guided_samples), basis
 PADDED_SYNTH = (1 << 17, 128, 9)
-# kernels B's and G's device ms in their first designs (one thread per
-# ray), as PERF.md records them for an NVIDIA H100 80GB HBM3 at 700 W;
-# printed beside this run's
+# kernels B's, G's, E's and F's device ms in their first designs (B and G
+# one thread per ray, E and F the descent from the root at every step), as
+# PERF.md records them for an NVIDIA H100 80GB HBM3 at 700 W; printed
+# beside this run's
 FIRST_DESIGN_MS = {"skip_prepass": 0.1326, "padded_composite real": 0.4694,
-                   "padded_composite synthetic": 1.0098}
+                   "padded_composite synthetic": 1.0098,
+                   "exact_march": 0.3522, "exact_march marks": 0.4553,
+                   "exact_collect": 1.0506}
 
 
 def log(*a):
@@ -131,7 +134,7 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def device_events(fn, n, tries=3):
+def device_events(fn, n, tries=5):
     """The profiler's per-kernel device events over ``n`` calls of ``fn``
     (``key_averages`` rows with device time).  The profiler now and then
     records no device time for a whole session; such a session is run
@@ -547,9 +550,16 @@ def exact_voxel_phase(P, kernels, dev, tree, leaf_map, cam, opt, report):
             tree, m, o, False), 1)
         be, be_by = exact_bound(m, ke[:3] + (ke[4],), steps_total, shaded,
                                 tree.data_dim)
+        regs = kernels.exact_attributes()
         log(f"kernel exact_march: {ms_e:.4f} ms on the device ({by_e}), "
             f"{ms_ev:.4f} ms with visit marks ({by_ev}); plain "
-            f"{plain_e:.2f} ms, bound {be:.4f} ms by {be_by}")
+            f"{plain_e:.2f} ms, bound {be:.4f} ms by {be_by}, "
+            f"{100 * be / ms_e:.0f}% of it (first design "
+            f"{FIRST_DESIGN_MS['exact_march']} ms, "
+            f"{FIRST_DESIGN_MS['exact_march marks']} with marks); registers "
+            f"and local bytes per thread {regs['exact_march']} with the "
+            f"restarted descent, {regs['exact_march root']} with the "
+            f"descent from the root")
         del ka, pa
     report.append(dict(
         name="exact_march", route="cuda",
@@ -1041,9 +1051,12 @@ def refine_phases(P, kernels, dev, report):
                vdirs, *ok[:5], ok[6]) + 4 * dirs.shape[0]
         + EXACT_BYTES_PER_STEP * steps_total,
         EXACT_OPS_PER_STEP * steps_total + RECORD_OPS * n_rec)
+    regs = kernels.exact_attributes()["exact_collect"]
     log(f"kernel exact_collect: {ms_f:.4f} ms on the device ({by_f}; with "
         f"the wrapper's fills; plain {plain_f:.2f} ms, bound {bf:.4f} ms "
-        f"by {bf_by})")
+        f"by {bf_by}, {100 * bf / ms_f:.0f}% of it (first design "
+        f"{FIRST_DESIGN_MS['exact_collect']} ms); registers and local bytes "
+        f"per thread {regs})")
     report.append(dict(
         name="exact_collect", route="cuda",
         source="mega_nerf_viewer_tpu_torch/csrc/exact_collect.cu",
@@ -1603,10 +1616,14 @@ def viewer_guided_phase(P, kernels, dev, report):
         20))
     plain_dd = cuda_ms(lambda: cc.composite_results_compact_reference(
         *c_args, o_d, 1, True), 2)
+    ev_dd = uncounted(kernels, lambda: cuda_ms(
+        lambda: cc.composite_results_compact_kernel(*c_args, o_d, 1, True),
+        20))
     b_dd, b_dd_by = depth_bound(total, R)
     log(f"kernel compact_composite (depth, {total} samples, {R} rays): "
-        f"{ms_dd:.4f} ms on the device ({by_dd}; plain {plain_dd:.2f} ms, "
-        f"bound {b_dd:.4f} ms by {b_dd_by})")
+        f"{ms_dd:.4f} ms on the device ({by_dd}; {ev_dd:.4f} ms by CUDA "
+        f"events around the calls; plain {plain_dd:.2f} ms, bound "
+        f"{b_dd:.4f} ms by {b_dd_by}, {100 * b_dd / ms_dd:.0f}% of it)")
     report.append(dict(
         name="compact_composite_depth", route="cuda",
         source="mega_nerf_viewer_tpu_torch/csrc/compact_composite.cu",

@@ -4,7 +4,7 @@
 // while_loop of the exact guided collection (guided.py:60-192), not a
 // Pallas kernel; the reference's get_samples_trace_ray
 // (rt_core.cuh:418-576).  It is the twin of the exact march
-// (exact_march.cu): the same descent and step (descend_step.cuh), the same
+// (exact_march.cu): the same step (descend_step.cuh), the same
 // votes and visit marks (the caller runs exact_visit_tail after it), the
 // same sigma gate and early stop; instead of shading, each dense sample
 // while ns < S writes its padded row [z, world xyz, (view dir),
@@ -20,8 +20,13 @@
 //
 // What bounds it on an H100: memory traffic that depends on the data: per
 // step the descent's child reads, one f16 sigma and one i16 count; per
-// recorded sample one row of 4 * (1 + dim) B and one id.  Built with
-// -fmad=false.
+// recorded sample one row of 4 * (1 + dim) B and one id.  The descent starts
+// at the root at every step: the exact march's restarted descent
+// (descend_restart) made this kernel 4% slower on the 1080p refinement rays
+// (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), so it is not taken here.
+// The restart finds the root descent's leaf bit for bit, so the two
+// kernels' trajectories stay equal (a card test holds them equal).  Built
+// with -fmad=false.
 #include "descend_step.cuh"
 
 namespace mnv {
@@ -66,10 +71,11 @@ exact_collect_kernel(ExactTree tr, const float* __restrict__ cen,
   int steps = 0, ns = 0;
   bool active = !miss[r] && t < tm;
   Votes v = votes_init(max_depth, max_sample_count);
+  DescendPath path;  // unused by the descent from the root
   while (active) {
     ++steps;
-    const DescendStep st =
-        descend_step(tr, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
+    const DescendStep st = descend_step<false>(
+        tr, path, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
     const float sigma = __half2float(tr.data[st.node * D + (D - 1)]);
     const bool dense = sigma > sigma_thresh;
     const float att = expf(-st.delta_t * ds * sigma);
@@ -151,4 +157,15 @@ extern "C" int exact_collect_launch(
       static_cast<float*>(pv), static_cast<int*>(steps),
       static_cast<float*>(t_final));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local memory bytes per thread of the exact collect as
+// built.
+extern "C" int exact_collect_attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, mnv::exact_collect_kernel);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(e);
 }

@@ -1,5 +1,5 @@
-// Exact march: one thread per ray, the octree descent from the root at
-// every step.
+// Exact march: one thread per ray, the octree descent at every step,
+// restarted from the deepest ancestor shared with the ray's previous path.
 //
 // Replaces: mega_nerf_viewer_tpu/ops/render.py, render_rays — the XLA
 // while_loop of the exact renderer (render.py:119-280), not a Pallas
@@ -9,7 +9,7 @@
 // slowest ray.
 //
 // Per step (render.py:199-258): the descent (descend_step.cuh, marking the
-// chunks on the path when visits are tracked), the DDA step, sigma from the
+// chunks it walks when visits are tracked), the DDA step, sigma from the
 // leaf's f16 row, the split and sample votes (common.cuh vote_step, one i16
 // sample-count read), sigma-gated compositing with SH shading (or weight *
 // t in depth mode, or the raw rgb of a tree that is not SH), early stop at
@@ -23,16 +23,40 @@
 // than the slowest (the caller passes that count on the device).
 //
 // What bounds it on an H100: memory traffic that depends on the data: per
-// step one i32 child read per level (~depth reads), one f16 data row and
-// one i16 count; per ray ~100 B of inputs and outputs.  The f32 math per
-// step is small against the card's rate.  Design, simple first: no shared
-// memory; the child table of the 1080p scenes (a few MB) stays in L2.
-// Built with -fmad=false.
+// step one i32 child read per level walked, one f16 data row and one i16
+// count; per ray ~100 B of inputs and outputs.  The f32 math per step is
+// small against the card's rate, and the child table of the 1080p scenes
+// (a few MB) stays in L2.  What holds it, measured on an NVIDIA H100 80GB
+// HBM3 at 700 W, is latency at its occupancy (16 registers more, 3 blocks
+// of 256 an SM in place of 4, cost 12-16%) and the step's instructions: the
+// descent alone is half of its time (probes/exact_breakdown.py, PERF.md).
+// Design: for N = 2^b each thread keeps the chunk of every level of its
+// last path in a local array (descend_restart), and a step re-walks only
+// the levels below the deepest ancestor its new position shares with that
+// path, 1.86 on average on the 1080p shell where the root descent walks
+// 3.95, and scales the exit by an exact power of two in place of a
+// division; any other N descends from the root (descend), as the
+// visit-tail kernel does.  Blocks of 128 threads capped at 56 registers
+// (28 bytes spill) run 36 warps an SM; 256-thread blocks at 63 registers
+// ran 32, 4% slower.  No shared memory.  Built with -fmad=false.
 #include "descend_step.cuh"
 
 namespace mnv {
 
-__global__ void __launch_bounds__(kBlock)
+#ifdef MNV_ROOT_DESCENT
+// the design before the restart: 256 threads a block, no register cap (an
+// explicit minimum of one block changes the compiler's allocation)
+constexpr int kExactBlock = kBlock;
+#define MNV_EXACT_BOUNDS __launch_bounds__(kBlock)
+#else
+// 128 threads a block, 9 of them an SM: at most 56 registers, 36 warps an
+// SM where 256-thread blocks at 63 registers fit 32
+constexpr int kExactBlock = 128;
+#define MNV_EXACT_BOUNDS __launch_bounds__(kExactBlock, 9)
+#endif
+
+template <bool kRestart>
+__global__ void MNV_EXACT_BOUNDS
 exact_march_kernel(ExactTree tr, const float* __restrict__ cen,
                    const float* __restrict__ d,
                    const float* __restrict__ invdir,
@@ -65,10 +89,12 @@ exact_march_kernel(ExactTree tr, const float* __restrict__ cen,
   bool stopped = false;
   bool active = !ray_miss && t < tm;
   Votes v = votes_init(max_depth, max_sample_count);
+  DescendPath path;
+  path.L = 0;
   while (active && (max_iters == 0 || steps < max_iters)) {
     ++steps;
-    const DescendStep st =
-        descend_step(tr, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
+    const DescendStep st = descend_step<kRestart>(
+        tr, path, cx, cy, cz, dx, dy, dz, ix, iy, iz, t, step_size);
     const __half* leaf = tr.data + st.node * D;
     const float sigma = __half2float(leaf[D - 1]);
     const bool dense = sigma > sigma_thresh;
@@ -160,12 +186,15 @@ extern "C" int exact_march_launch(
     float step_size, float sigma_thresh, float stop_thresh, int max_depth,
     int max_sample_count, int max_iters, int R, void* out, void* sv,
     void* pv, void* steps, void* t_final, void* stream) {
-  const int grid = (R + mnv::kBlock - 1) / mnv::kBlock;
-  mnv::exact_march_kernel<<<grid, mnv::kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      mnv::exact_tree(child, n_child, data, n_nodes, D, counts, N,
-                      max_levels, visited, n_visited),
-      static_cast<const float*>(cen), static_cast<const float*>(d),
+  const int grid = (R + mnv::kExactBlock - 1) / mnv::kExactBlock;
+  const mnv::ExactTree tr = mnv::exact_tree(child, n_child, data, n_nodes, D,
+                                            counts, N, max_levels, visited,
+                                            n_visited);
+  auto kernel = tr.b > 0 ? mnv::exact_march_kernel<true>
+                         : mnv::exact_march_kernel<false>;
+  kernel<<<grid, mnv::kExactBlock, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      tr, static_cast<const float*>(cen), static_cast<const float*>(d),
       static_cast<const float*>(invdir),
       static_cast<const float*>(delta_scale),
       static_cast<const float*>(tmin), static_cast<const float*>(tmax),
@@ -175,6 +204,19 @@ extern "C" int exact_march_launch(
       static_cast<float*>(sv), static_cast<float*>(pv),
       static_cast<int*>(steps), static_cast<float*>(t_final));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local memory bytes per thread of the exact march as built,
+// with the restart (restart != 0) or the root descent.
+extern "C" int exact_march_attributes(int restart, int* regs,
+                                      int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, restart ? mnv::exact_march_kernel<true>
+                  : mnv::exact_march_kernel<false>);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 // Shared by the exact march and the exact collect (exact_collect.cu).

@@ -88,6 +88,9 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P),
+    # [restart,] registers (out), local memory bytes (out)
+    "exact_march_attributes": (_I, _P, _P),
+    "exact_collect_attributes": (_P, _P),
     # the exact tree, cen, d, t_final, steps, max_steps, R, stream
     "exact_visit_tail_launch": (_P, _L, _P, _L, _I, _P, _I, _I, _P, _L,
                                 _P, _P, _P, _P, _P, _I, _P),
@@ -460,6 +463,24 @@ def exact_march(tree, m, opt, track_visit, max_levels, max_iters):
     return out, sv, pv, visited, steps
 
 
+def exact_attributes() -> dict:
+    """Registers and local memory bytes per thread of the exact kernels as
+    built: ``{"exact_march": (regs, bytes), "exact_march root": ...,
+    "exact_collect": ...}`` ("exact_march" with the restarted descent of
+    N = 2^b, "exact_march root" with the descent from the root)."""
+    lib = _library()
+    out = {}
+    for key, fn, args in (
+            ("exact_march", lib.exact_march_attributes, (1,)),
+            ("exact_march root", lib.exact_march_attributes, (0,)),
+            ("exact_collect", lib.exact_collect_attributes, ())):
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        _raise_on(fn(*args, ctypes.byref(regs), ctypes.byref(local)),
+                  f"{key} attributes")
+        out[key] = (regs.value, local.value)
+    return out
+
+
 def exact_collect(tree, m, dirs, vdirs, cen_world, grid, opt, track_visit,
                   max_levels):
     """Launch the exact guided collect (csrc/exact_collect.cu) from the
@@ -597,6 +618,6 @@ def gather_chunk_sums(table, idx):
 
 
 __all__ = ["LAUNCHES", "SOURCES", "build", "collect", "compact_composite",
-           "exact_collect", "exact_march", "gather_chunk_sums",
-           "library_path", "march", "padded_composite",
+           "exact_attributes", "exact_collect", "exact_march",
+           "gather_chunk_sums", "library_path", "march", "padded_composite",
            "reset_launch_counts", "skip_prepass"]

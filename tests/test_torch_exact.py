@@ -343,3 +343,252 @@ def test_fresh_visit_tracker():
     v = P.fresh_visit_tracker(pt)
     assert v.shape == (pt.max_capacity,) and v.dtype == torch.int32
     assert int(v[0]) == 1 and int(v.sum()) == 1
+
+
+# ----------------------------------------------------------------------
+# The restarted descent of kernels E and F (csrc/descend_step.cuh), in a
+# numpy emulation held bit-equal to the descent from the root: the port's
+# ``_descend`` and the JAX ``_descend`` (render.py:49-92).
+# ----------------------------------------------------------------------
+PATH_CAP = 20   # csrc/descend_step.cuh kPathCap
+F32 = np.float32
+
+
+def _restart_bits(N):
+    """csrc/descend_step.cuh:restart_bits."""
+    b = 0
+    while b < 31 and (1 << b) < N:
+        b += 1
+    return b if N >= 2 and (1 << b) == N else 0
+
+
+def _pow2(e):
+    return F32(2.0 ** e)
+
+
+def _descend_level(child, N, chunk, f, visited):
+    """csrc/descend_step.cuh:descend_level on one position: returns (skip,
+    cidx) and updates the in-cell position ``f`` (3 f32) in place."""
+    Nf, NNf = F32(N), F32(N * N)
+    if 0 <= chunk < visited.size and visited[chunk] == 0:
+        visited[chunk] = 1
+    u = [f[i] * Nf for i in range(3)]
+    g = [np.floor(u[i]) for i in range(3)]
+    idx = int(g[0] * NNf + g[1] * Nf + g[2])
+    for i in range(3):
+        f[i] = u[i] - g[i]
+    cidx = idx
+    return int(child[min(max(chunk * N ** 3 + idx, 0), child.size - 1)]), cidx
+
+
+def _descend_root(child, N, max_levels, f, visited):
+    """csrc/descend_step.cuh:descend, line for line."""
+    chunk, cidx, depth = 0, 0, 1
+    for _ in range(max_levels):
+        skip, cidx = _descend_level(child, N, chunk, f, visited)
+        if skip == 0:
+            return chunk, cidx, depth
+        chunk += skip
+        depth += 1
+    return chunk, cidx, depth
+
+
+def _descend_restart(child, N, b, max_levels, path, f, visited):
+    """csrc/descend_step.cuh:descend_restart, line for line.  ``path`` is
+    the dict {chunk: [PATH_CAP], L, p: [3 f32]} of the ray's last descent."""
+    p = list(f)
+    k = 0
+    chunk = 0
+    if path["L"] > 0:
+        L = path["L"]
+        s = _pow2(b * L)
+        x = 0
+        for i in range(3):
+            x |= int(np.floor(p[i] * s)) ^ int(np.floor(path["p"][i] * s))
+        bits = x.bit_length()
+        k = L - (bits if b == 1 else (bits + b - 1) // b)
+        if k > L - 1:
+            k = L - 1
+        sk = _pow2(b * k)
+        for i in range(3):
+            u = p[i] * sk
+            f[i] = u - np.floor(u)
+        chunk = path["chunk"][k]
+    cidx = 0
+    depth = k + 1
+    L = max_levels
+    for lev in range(k, max_levels):
+        if lev < PATH_CAP:
+            path["chunk"][lev] = chunk
+        skip, cidx = _descend_level(child, N, chunk, f, visited)
+        if skip == 0:
+            L = lev + 1
+            break
+        chunk += skip
+        depth += 1
+    path["L"] = L if L <= PATH_CAP and b * L <= 31 else 0
+    path["p"] = p
+    return chunk, cidx, depth
+
+
+def _emulate_step(child, N, max_levels, path, pos, visited):
+    """csrc/descend_step.cuh:descend_step's descent at the clipped ``pos``:
+    the restart for N = 2^b, the root descent otherwise.  Returns (frac,
+    chunk, cidx, depth)."""
+    b = _restart_bits(N)
+    f = [F32(v) for v in pos]
+    if b > 0:
+        c, i, d = _descend_restart(child, N, b, max_levels, path, f, visited)
+    else:
+        c, i, d = _descend_root(child, N, max_levels, f, visited)
+    return np.asarray(f, F32), c, i, d
+
+
+def _uneven_tree():
+    """A depth-3 sphere refined twice by ``ops/refine.expand_voxels`` at the
+    leaves an exact frame votes for: leaves from depth 1 to 5."""
+    pt = P.sphere_tree(basis_dim=1, depth=3, max_capacity=400, device="cpu")
+    pm = P.MegaNeRFModel.synthetic(
+        device="cpu", data_dim=4, n_clusters=4, grid_dim=(2, 2),
+        min_position=(-2, -2, -2), max_position=(2, 2, 2),
+        need_viewdir=True)
+    popt = P.RenderOptions(use_splitting=True, split_batch_size=24,
+                           need_viewdir=True)
+    gen = torch.Generator().manual_seed(3)
+    tracker = P.fresh_visit_tracker(pt)
+    _, prays = world_rays(camera(20, 18, 16.0), popt)
+    for _ in range(2):
+        res = PR.render_rays(pt, *prays, popt)
+        pt, tracker, added = P.expand_voxels(pt, pm, popt, res.split_vote,
+                                             tracker, generator=gen)
+        assert added > 0
+    return pt
+
+
+_RESTART_TREES = {
+    "sphere_n2": lambda: P.sphere_tree(basis_dim=1, depth=5, device="cpu"),
+    "sphere_n4": lambda: P.sphere_tree(basis_dim=1, depth=3, N=4,
+                                       device="cpu"),
+    "sphere_n3": lambda: P.sphere_tree(basis_dim=1, depth=3, N=3,
+                                       device="cpu"),
+    "uneven_n2": _uneven_tree,
+}
+_RESTART_CACHE = {}
+
+
+def _restart_tree(name):
+    if name not in _RESTART_CACHE:
+        _RESTART_CACHE[name] = _RESTART_TREES[name]()
+    return _RESTART_CACHE[name]
+
+
+def _ray_trajectories(pt, max_levels, max_steps=400):
+    """The clipped positions of the exact march's steps along the rays of a
+    20x18 view (the descent from the root sets each step), [R, T, 3] with
+    each ray's last position repeated past its end."""
+    opt = P.RenderOptions()
+    _, prays = world_rays(camera(20, 18, 16.0), opt)
+    m = PA.march_inputs(pt, prays[0], prays[1], prays[2], opt)
+    keep = ~m.miss & (m.tmin < m.tmax)
+    t, d = m.tmin[keep], m.d[keep]
+    invdir, tmax = m.invdir[keep], m.tmax[keep]
+    child = pt.child.reshape(-1)
+    active = torch.ones_like(t, dtype=torch.bool)
+    traj = []
+    pos = None
+    for _ in range(max_steps):
+        new = torch.clamp(P.ops.fp.fma_f32(t[:, None], d, m.cen[None, :]),
+                          0.0, PR.EPS_HI)
+        pos = new if pos is None else torch.where(active[:, None], new, pos)
+        traj.append(pos)
+        frac, _, _, depth = PR._descend(child, pos, pt.N, max_levels, None)
+        delta = (PR._dda_unit_batch(frac, invdir)
+                 / P.ops.fp.ipow_f32(pt.N, depth) + m.step_size)
+        t = torch.where(active, t + delta, t)
+        active = active & (t < tmax)
+        if not bool(active.any()):
+            break
+    return torch.stack(traj, 1).numpy()
+
+
+def _face_walks(N, depth, n_walks=6, length=40, seed=0):
+    """Positions on cell faces of every level up to ``depth`` (coordinates
+    j / N^l), at 0 and at the clip bound 1 - 1e-6, in random walks that mix
+    near neighbours with far jumps.  [n_walks, length, 3] f32."""
+    rng = np.random.default_rng(seed)
+    top = N ** depth
+    walks = np.empty((n_walks, length, 3), F32)
+    for w in range(n_walks):
+        cell = rng.integers(0, top, 3)
+        for s in range(length):
+            r = rng.random()
+            if r < 0.6:
+                cell = np.clip(cell + rng.integers(-1, 2, 3), 0, top - 1)
+            elif r < 0.9:
+                cell = rng.integers(0, top, 3)
+            lev = int(rng.integers(0, depth + 1))
+            q = (cell // N ** (depth - lev)).astype(np.float64) / N ** lev
+            pos = q.astype(F32)
+            edge = rng.random(3)
+            pos[edge < 0.1] = F32(PR.EPS_HI)
+            pos[edge > 0.95] = F32(0.0)
+            walks[w, s] = pos
+    return walks
+
+
+@pytest.mark.parametrize("name,max_levels,source", [
+    ("sphere_n2", 20, "rays"), ("sphere_n4", 20, "rays"),
+    ("uneven_n2", 20, "rays"), ("sphere_n2", 3, "rays"),
+    ("sphere_n4", 2, "rays"), ("uneven_n2", 3, "rays"),
+    ("sphere_n2", 20, "faces"), ("sphere_n4", 20, "faces"),
+    ("uneven_n2", 20, "faces"), ("sphere_n3", 20, "rays")])
+def test_restarted_descent_bit_equal_to_root(name, max_levels, source):
+    """Along each trajectory the restart (N = 2^b; N = 3 descends from the
+    root) gives chunk, cidx, depth and the in-leaf fraction bit-equal to the
+    port's and JAX's descents from the root, and marks the same chunks."""
+    pt = _restart_tree(name)
+    child_t = pt.child.reshape(-1)
+    child = child_t.numpy()
+    if source == "rays":
+        traj = _ray_trajectories(pt, max_levels)
+    else:
+        traj = _face_walks(pt.N, 5 if pt.N == 2 else 3)
+    R, T, _ = traj.shape
+    flat = torch.from_numpy(traj.reshape(-1, 3))
+    want = PR._descend(child_t, flat, pt.N, max_levels, None)
+    jw = JR._descend(jnp.asarray(child), jnp.asarray(traj.reshape(-1, 3)),
+                     pt.N, max_levels, jnp.zeros((pt.max_capacity,),
+                                                 jnp.int32), True)
+    for a, b in zip(want, jw[:4]):
+        assert np.array_equal(a.numpy().view(np.int32),
+                              np.asarray(b).view(np.int32))
+    frac_w, chunk_w, cidx_w, depth_w = (a.numpy().reshape(R, T, -1)
+                                        for a in want)
+    union = np.zeros((pt.max_capacity,), np.int32)
+    depths = set()
+    restarted = 0
+    for r in range(R):
+        path = {"chunk": [0] * PATH_CAP, "L": 0, "p": [F32(0)] * 3}
+        visited = np.zeros((pt.max_capacity,), np.int32)
+        for s in range(T):
+            if path["L"] > 0:
+                restarted += 1
+            f, c, i, d = _emulate_step(child, pt.N, max_levels, path,
+                                       traj[r, s], visited)
+            assert np.array_equal(f.view(np.int32),
+                                  frac_w[r, s].view(np.int32)), (r, s)
+            assert (c, i, d) == (chunk_w[r, s, 0], cidx_w[r, s, 0],
+                                 depth_w[r, s, 0]), (r, s)
+            depths.add(d)
+        root = torch.zeros((pt.max_capacity,), dtype=torch.int32)
+        PR._descend(child_t, torch.from_numpy(traj[r]), pt.N, max_levels,
+                    root)
+        np.testing.assert_array_equal(visited, root.numpy())
+        union |= visited
+    np.testing.assert_array_equal(union, np.asarray(jw[4]))
+    print(f"{name} max_levels {max_levels} {source}: {R} x {T} positions, "
+          f"leaf depths {sorted(depths)}, {restarted} restarted steps")
+    assert restarted > (0 if _restart_bits(pt.N) else -1)
+    assert (restarted == 0) == (_restart_bits(pt.N) == 0)
+    if max_levels < 5:
+        assert max(depths) == max_levels + 1   # cut descents were walked

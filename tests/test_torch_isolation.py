@@ -31,7 +31,8 @@ def test_import_leaves_out_jax():
             "mega_nerf_viewer_tpu_torch.utils.png, "
             "mega_nerf_viewer_tpu_torch.utils.metrics, "
             "mega_nerf_viewer_tpu_torch.probes.gather_probe, "
-            "mega_nerf_viewer_tpu_torch.probes.prepass_breakdown\n"
+            "mega_nerf_viewer_tpu_torch.probes.prepass_breakdown, "
+            "mega_nerf_viewer_tpu_torch.probes.exact_breakdown\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
             "or m.startswith('mega_nerf_viewer_tpu.')]\n"
@@ -65,7 +66,8 @@ def test_no_source_imports_jax():
             "cli.py", os.path.join("utils", "png.py"),
             os.path.join("utils", "metrics.py"),
             os.path.join("probes", "gather_probe.py"),
-            os.path.join("probes", "prepass_breakdown.py")} <= names
+            os.path.join("probes", "prepass_breakdown.py"),
+            os.path.join("probes", "exact_breakdown.py")} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -86,8 +88,8 @@ def _entry_points():
     import mega_nerf_viewer_tpu_torch as P
     from mega_nerf_viewer_tpu_torch import api, cli
     from mega_nerf_viewer_tpu_torch.ops import accel
-    from mega_nerf_viewer_tpu_torch.probes import gather_probe, \
-        prepass_breakdown
+    from mega_nerf_viewer_tpu_torch.probes import exact_breakdown, \
+        gather_probe, prepass_breakdown
     from mega_nerf_viewer_tpu_torch.utils.tuning import device_tuning
     fixture = os.path.join(REPO, "tests", "fixtures", "digger_sh4.npz")
     return [
@@ -104,10 +106,11 @@ def _entry_points():
         lambda: cli.main([fixture, "-w", "8", "--height", "8"]),
         lambda: gather_probe.main(["11"]),
         lambda: prepass_breakdown.main(["1"]),
+        lambda: exact_breakdown.main(["1"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(12))
+@pytest.mark.parametrize("i", range(13))
 def test_entry_point_without_device_needs_a_card(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -280,6 +280,90 @@ def test_exact_march_kernel_matches_plain(cuda, track_visit, depth_mode,
         assert int(ok[3].sum()) > 1
 
 
+_EXACT_TREES = {}
+
+
+def _exact_tree(cuda, name):
+    """The exact kernels' trees beyond the depth-5 sphere: a depth-3 sphere
+    refined twice by ``expand_voxels`` at the leaves its exact frame votes
+    for (leaves of uneven depth), and N = 4 and N = 3 spheres (the restarted
+    descent, and the descent from the root)."""
+    if name not in _EXACT_TREES:
+        if name == "uneven":
+            tree = P.sphere_tree(basis_dim=1, depth=3, max_capacity=400,
+                                 device=cuda)
+            model = P.MegaNeRFModel.synthetic(
+                device=cuda, data_dim=4, n_clusters=4, grid_dim=(2, 2),
+                min_position=(-2, -2, -2), max_position=(2, 2, 2),
+                need_viewdir=True)
+            opt = P.RenderOptions(use_splitting=True, split_batch_size=24,
+                                  need_viewdir=True)
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            tracker = P.fresh_visit_tracker(tree)
+            _, _, dirs, cen = _exact_scene(cuda)
+            for _ in range(2):
+                res = P.render_rays(tree, dirs, dirs, cen, opt)
+                tree, tracker, added = P.expand_voxels(
+                    tree, model, opt, res.split_vote, tracker, generator=gen)
+                assert added > 0
+        else:
+            tree = P.sphere_tree(basis_dim=4, depth=3,
+                                 N=4 if name == "n4" else 3, device=cuda)
+        _EXACT_TREES[name] = tree
+    return _EXACT_TREES[name]
+
+
+@pytest.mark.parametrize("name", ["uneven", "n4", "n3"])
+@pytest.mark.parametrize("max_levels", [20, 2])
+@pytest.mark.parametrize("track_visit,depth_mode", [
+    (False, False), (True, False), (True, True)])
+def test_exact_march_kernel_trees_match_plain(cuda, name, max_levels,
+                                              track_visit, depth_mode):
+    """Kernel E on trees of uneven depth and of N = 4 (the restarted
+    descent) and N = 3 (the descent from the root), with max_levels cut
+    below the trees' depth: integers equal, rgba within 1e-6."""
+    from mega_nerf_viewer_tpu_torch.ops import render
+    tree = _exact_tree(cuda, name)
+    _, _, dirs, cen = _exact_scene(cuda)
+    opt = P.RenderOptions(render_depth=depth_mode)
+    m = accel.march_inputs(tree, dirs, dirs, cen, opt)
+    ok = kernels.exact_march(tree, m, opt, track_visit, max_levels, 0)
+    op = render.exact_march_reference(tree, m, opt, track_visit, max_levels)
+    assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+    for a, b in zip(ok[1:], op[1:]):
+        assert torch.equal(a, b)
+    assert int(ok[4].max()) > 1
+    if track_visit:
+        assert int(ok[3].sum()) > 1
+
+
+@pytest.mark.parametrize("name", ["sphere", "uneven", "n4", "n3"])
+@pytest.mark.parametrize("max_levels", [20, 2])
+def test_exact_march_trajectories_equal_exact_collect(cuda, name,
+                                                      max_levels):
+    """Kernels E and F share the descent (csrc/descend_step.cuh): on the
+    same rays their steps, split and sample votes and visit marks are
+    equal."""
+    from mega_nerf_viewer_tpu_torch.ops import guided
+    tree = (_exact_scene(cuda)[0] if name == "sphere"
+            else _exact_tree(cuda, name))
+    _, _, dirs, cen = _exact_scene(cuda)
+    opt = P.RenderOptions(max_guided_samples=16, need_viewdir=True)
+    grid = (torch.tensor([2, 2], dtype=torch.int32, device=cuda),
+            torch.full((3,), -1.0, device=cuda),
+            torch.full((3,), 2.0, device=cuda))
+    me = accel.march_inputs(tree, dirs, dirs, cen, opt)
+    mf = guided.collect_inputs(tree, dirs, cen, opt)
+    _, sv_e, pv_e, vis_e, steps_e = kernels.exact_march(
+        tree, me, opt, True, max_levels, 0)
+    _, _, ns, sv_f, pv_f, vis_f, steps_f = kernels.exact_collect(
+        tree, mf, dirs, dirs, cen, grid, opt, True, max_levels)
+    assert torch.equal(steps_e, steps_f)
+    assert torch.equal(sv_e, sv_f) and torch.equal(pv_e, pv_f)
+    assert torch.equal(vis_e, vis_f)
+    assert int(steps_e.max()) > 1 and int(ns.sum()) > 0
+
+
 @pytest.mark.parametrize("S", [16, 2])
 def test_exact_collect_kernel_matches_plain(cuda, S):
     from mega_nerf_viewer_tpu_torch.ops import guided
