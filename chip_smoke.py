@@ -37,7 +37,19 @@ shapes of the main paths, and drives both paths of the port:
   (the last with guided sampling on, through kernels F and G),
   the CLI in a subprocess on a saved tree, kernel H (the row-gather probe)
   at ``benchmarks/dma_gather_probe.py``'s shapes, and a small Viewer
-  session on the card against the CPU.
+  session on the card against the CPU;
+* the moving camera (phase 19): the Viewer at 1080p under the device
+  policy (a 12-pose orbit, each pose against a fresh frame, the budgets
+  starved once so that the gated fallback march of kernel A is taken),
+  the async policy with the re-hint and the dilate motion modes on
+  ``benchmarks/motion1080p.py``'s 24 poses at 3 degrees (each pose off a
+  fresh frame on no more pixels than its own flags report, then parked
+  frames against fresh ones), the turbo map (parked within 1e-3 of phase
+  4's frame with fewer march steps, then an orbit against fresh turbo
+  frames) and chunk-exact budgets (within 1e-6 of phase 4's frame); the
+  device-fallback frame and the stride-2 motion frame run under sync
+  debug mode "error"; then kernel A's gated launch, closed and taken,
+  against its plain version.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -428,19 +440,20 @@ def main():
     guided_launches = guided_phases(P, kernels, dev, report)
     refine_launches = refine_phases(P, kernels, dev, report)
     viewer_launches = viewer_phase(P, kernels, dev, voxel_ref)
+    motion_launches = motion_phase(P, kernels, dev, voxel_ref, report)
     del voxel_ref
     torch.cuda.empty_cache()
     viewer_guided_launches = viewer_guided_phase(P, kernels, dev, report)
     probe_phase(kernels, dev, report)
     small_viewer(P, dev)
 
-    # launches: each path's own run (phases 4, 8, 12, 15 and 16), summed
-    # over the paths for the kernels that several paths run; kernel H is on
-    # no path (0)
+    # launches: each path's own run (phases 4, 8, 12, 15, 16 and 19),
+    # summed over the paths for the kernels that several paths run; kernel
+    # H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
-            viewer_launches, viewer_guided_launches))
+            viewer_launches, viewer_guided_launches, motion_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -1522,6 +1535,305 @@ def viewer_phase(P, kernels, dev, voxel_ref):
     return launches
 
 
+def motion_step(cam, deg):
+    """One pose of ``benchmarks/motion1080p.py``'s orbit: a right-button
+    drag of ``deg`` degrees about the origin."""
+    cam.begin_drag(0.0, 0.0, False, True)
+    cam.drag_update(-np.deg2rad(deg) * cam.width / 2.0, 0.0)
+    cam.end_drag()
+
+
+def no_host_sync(fn):
+    """``fn()`` under sync debug mode "error": any host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def motion_phase(P, kernels, dev, voxel_ref, report):
+    """Phase 19: the moving camera at 1080p on the voxel scene, through
+    the Viewer at the card's chunk size (viewer.py:560-1127): the device
+    policy on a 12-pose orbit with the budgets starved once (the gated
+    fallback march), the async policy with the re-hint and the dilate
+    motion modes on motion1080p.py's 24 poses at 3 degrees, the turbo map
+    parked and on an orbit, and chunk-exact budgets on the settled hints.
+    Then kernel A's gated launch, closed and taken, against its plain
+    version.  Returns the launch counts of the path's run."""
+    from mega_nerf_viewer_tpu_torch import viewer as VI
+    from mega_nerf_viewer_tpu_torch.ops import accel
+    from mega_nerf_viewer_tpu_torch.ops.rays import screen2worlddir_indices
+
+    ref_img = voxel_ref[0]
+    tree = P.shell_tree(depth=8, basis_dim=9, sigma_inside=400.0)
+    cs = P.device_tuning(dev).chunk_size
+    starved = [(0.75, 0), (0.25, 1)]
+
+    def viewer(policy, mode="rehint", turbo=False):
+        v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL))
+        check(v.fast_chunk_size == cs, "the Viewer's chunk is not the card's")
+        v.overflow_policy, v.motion_mode, v.use_turbo_map = policy, mode, turbo
+        return v
+
+    def fresh(v):
+        return uncounted(kernels, lambda: fresh_frame(
+            P, v.tree, v._leaf_map, v.camera, v.options, cs, v._skip_table))
+
+    def render(v):
+        """(frame, host ms, this frame's seg_overflow sum and fb_overflow,
+        or None for a frame that left no flags: a hint frame)."""
+        before = v._pending_ov
+        img, ms = timed(lambda: v.render(fetch=False))
+        p = v._pending_ov
+        if p is None or p is before:
+            return img, ms, None
+        fb = None if p[2] is None else int(VI._host_array(p[2]))
+        return img, ms, (int(VI._host_array(p[1]).sum()), fb)
+
+    def parked(v, what, n=N_FRAMES):
+        """Twelve frames to settle, each off a fresh frame on no more pixels
+        than its flags report (a parked async frame may truncate once: the
+        clean-streak budgets of viewer.py:1085-1109 keep the motion order),
+        then ``n`` within 1e-6 of the fresh frame."""
+        want = fresh(v)
+        for _ in range(12):
+            img, _, fl = render(v)
+            n_diff = int(((img - want).abs() > 1e-6).any(-1).sum())
+            check(n_diff <= (0 if fl is None else fl[0]),
+                  f"{what}: {n_diff} parked pixels off, flags {fl}")
+        worst = 0.0
+        for _ in range(n):
+            img = v.render(fetch=False)
+            worst = max(worst, float((img - want).abs().max()))
+        check(worst <= 1e-6, f"{what}: a parked frame differs from a fresh "
+              f"frame by {worst}")
+        return worst
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the device policy: every frame right, the fallback on the card
+    v = viewer("device")
+    v.render(fetch=False)
+    img = v.render(fetch=False)
+    check(float((img - ref_img).abs().max()) <= 1e-6,
+          "the device policy's parked frame differs from phase 4's")
+    v._segments, v._pending_ov = list(starved), None
+    img, ms_starved, fl = render(v)
+    err = float((img - ref_img).abs().max())
+    check(fl is not None and fl[0] > 0, "the starved frame did not overflow")
+    check(err <= 1e-6, f"the starved frame differs from phase 4's by {err}")
+    taken = 1
+    poses = []
+    for _ in range(12):
+        orbit_step(v.camera, 12)
+        img, ms, fl = render(v)
+        err = float((img - fresh(v)).abs().max())
+        check(err <= 1e-6, f"a device-policy pose differs from a fresh frame "
+              f"by {err}")
+        check(bool(torch.isfinite(img).all()), "non-finite pixels")
+        taken += fl is not None and fl[0] > 0
+        poses.append(dict(ms=round(ms, 3), flags=fl, err=err))
+    med = sorted(p["ms"] for p in poses)[6]
+    profile_frames(lambda: (orbit_step(v.camera, 12), v.render(fetch=False)),
+                   med, what="device-policy pose")
+    log(f"motion, device policy: starved frame {ms_starved:.3f} ms (gated "
+        f"fallback taken, each pixel within 1e-6 of phase 4's); 12-pose "
+        f"orbit median {med:.3f} ms/pose, fallback taken on {taken} frames; "
+        f"each pose against a fresh frame: max abs diff "
+        f"{max(p['err'] for p in poses):.3e}; poses {poses}")
+    v.render(fetch=False)
+    check(v._ray_order is not None, "no ray order after the orbit")
+    out = uncounted(kernels, lambda: no_host_sync(
+        lambda: P.render_frame_fast_segmented(
+            tree, v._leaf_map, v.camera, v.options, order=v._ray_order,
+            segments=tuple(starved), chunk_size=cs,
+            skip_table=v._skip_table, device_fallback=True,
+            return_hints="packed")))
+    err = float((out[0] - fresh(v)).abs().max())
+    check(bool(out[1].any()) and int(out[2]) == 0 and err <= 1e-6,
+          f"the sync-free device_fallback frame: overflow {out[1].tolist()}, "
+          f"fb {int(out[2])}, max abs diff {err}")
+    log(f"device_fallback frame under sync debug mode 'error': no host "
+        f"sync; seg_overflow {out[1].tolist()}, fb_overflow 0, max abs diff "
+        f"{err:.3e} against a fresh frame")
+    fallback_order = v._ray_order
+    del v, out
+
+    # -- the async policy, re-hint and dilate, on motion1080p.py's orbit
+    for mode in ("rehint", "dilate"):
+        v = viewer("async", mode)
+        v.render(fetch=False)
+        v.render(fetch=False)
+        poses = []
+        for _ in range(24):
+            motion_step(v.camera, 3.0)
+            img, ms, fl = render(v)
+            want = fresh(v)
+            n_diff = int(((img - want).abs() > 1e-6).any(-1).sum())
+            allowed = 0 if fl is None else fl[0]
+            check(n_diff <= allowed, f"async {mode} pose: {n_diff} pixels "
+                  f"differ from a fresh frame, its flags report {allowed}")
+            check(bool(torch.isfinite(img).all()), "non-finite pixels")
+            poses.append(dict(ms=round(ms, 3), diff=n_diff, flags=allowed))
+        med = sorted(p["ms"] for p in poses)[12]
+        profile_frames(lambda: (motion_step(v.camera, 3.0),
+                                v.render(fetch=False)),
+                       med, what=f"async {mode} pose")
+        worst = parked(v, f"async {mode}")
+        log(f"motion, async policy, {mode}: 24 poses at 3 deg, median "
+            f"{med:.3f} ms/pose; pixels off a fresh frame {sum(p['diff'] for p in poses)} "
+            f"in all, never more than the pose's flags; parked again: "
+            f"{N_FRAMES} frames within {worst:.3e} of a fresh frame; poses "
+            f"{poses}")
+        if mode == "rehint":
+            motion_step(v.camera, 3.0)
+            v.camera._update()
+            segs = accel.segments_from_hint_cdf(v._last_cdf, WIDTH * HEIGHT,
+                                                margin=1)
+            img, ov, _, _, q = uncounted(kernels, lambda: no_host_sync(
+                lambda: P.render_frame_motion(
+                    tree, v._leaf_map, v.camera, v.options, v._qperm,
+                    segments=segs, chunk_size=cs, skip_table=v._skip_table,
+                    hint_stride=2)))
+            want = fresh(v)
+            n_diff = int(((img - want).abs() > 1e-6).any(-1).sum())
+            check(n_diff <= int(ov.sum()) and q.shape[0] * 4 == WIDTH * HEIGHT,
+                  f"the sync-free motion frame: {n_diff} pixels off, "
+                  f"overflow {ov.tolist()}")
+            log(f"render_frame_motion(hint_stride=2) under sync debug mode "
+                f"'error': no host sync; seg_overflow {ov.tolist()}, "
+                f"{n_diff} pixels off a fresh frame")
+        del v
+
+    # -- the turbo map: parked within 1e-3 of phase 4's frame, fewer steps
+    v = viewer("sync", turbo=True)
+    v.render(fetch=False)
+    img = v.render(fetch=False)
+    err_turbo = float((img - ref_img).abs().max())
+    check(err_turbo <= 1e-3, f"the turbo frame differs from phase 4's by "
+          f"{err_turbo}")
+    ms_turbo = sorted(cuda_ms(lambda: v.render(fetch=False), N_FRAMES)
+                      for _ in range(ROUNDS))[ROUNDS // 2]
+
+    def steps_of(leaf_map):
+        return int(P.render_frame_fast(
+            tree, leaf_map, v.camera, v.options, max_dense=128,
+            chunk_size=cs, skip_table=v._skip_table)[2].sum())
+    st_turbo = uncounted(kernels, lambda: steps_of(v._leaf_map))
+    st_plain = uncounted(kernels, lambda: steps_of(P.build_leaf_map(tree)))
+    check(st_turbo < st_plain, f"the turbo map marched {st_turbo} steps, "
+          f"the plain map {st_plain}")
+    errs = []
+    for _ in range(12):
+        orbit_step(v.camera, 12)
+        img = v.render(fetch=False)
+        errs.append(float((img - fresh(v)).abs().max()))
+        check(errs[-1] <= 1e-6, f"a turbo pose differs from a fresh turbo "
+              f"frame by {errs[-1]}")
+    log(f"turbo map: parked {ms_turbo:.3f} ms/frame, against phase 4's "
+        f"frame max abs diff {err_turbo:.3e}; march steps {st_turbo} "
+        f"(plain map {st_plain}); 12-pose sync orbit against fresh turbo "
+        f"frames: max abs diff {max(errs):.3e}")
+    del v
+
+    # -- chunk-exact budgets from the settled sorted hints
+    v = viewer("sync")
+    v.render(fetch=False)
+    v.render(fetch=False)
+    ms_ladder = sorted(cuda_ms(lambda: v.render(fetch=False), N_FRAMES)
+                       for _ in range(ROUNDS))[ROUNDS // 2]
+    hints, order = v._hints_packed, v._ray_order
+    sc = P.seg_counts_from_hints((hints >> 18)[order[0]], cs)
+
+    def exact_frame():
+        return P.render_frame_fast_segmented(
+            tree, v._leaf_map, v.camera, v.options, order=order,
+            seg_counts=sc, chunk_size=cs, skip_table=v._skip_table,
+            return_hints="packed")
+    img, ov, ph = exact_frame()
+    err_exact = float((img - ref_img).abs().max())
+    check(not ov.any() and torch.equal(ph, hints) and err_exact <= 1e-6,
+          f"the chunk-exact frame: overflow {ov.tolist()}, max abs diff "
+          f"{err_exact}")
+    ms_exact = sorted(cuda_ms(exact_frame, N_FRAMES)
+                      for _ in range(ROUNDS))[ROUNDS // 2]
+    log(f"chunk-exact budgets {sc}: {ms_exact:.3f} ms/frame (the Viewer's "
+        f"ladder segments {v._segments}: {ms_ladder:.3f} ms/frame); against "
+        f"phase 4's frame max abs diff {err_exact:.3e}, hints equal")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"motion path: launches {launches}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(launches["skip_prepass"] > 0 and launches["march"] > 0
+          and launches["march_gated"] > 0,
+          f"a kernel of the motion path never launched: {launches}")
+    del v
+
+    # -- kernel A's gated launch, closed and taken, on the fallback's rays
+    perm = fallback_order[0]
+    n_pad = -(-perm.shape[0] // cs) * cs
+    pix = torch.cat([perm, perm[-1:].expand(n_pad - perm.shape[0])])
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    opt = P.RenderOptions()
+    leaf_map = P.build_leaf_map(tree)
+    table = P.build_skip_table(tree, opt.sigma_thresh)
+    dirs, cen = screen2worlddir_indices(
+        pix, WIDTH, cam.fx, cam.fy, cam.cx, cam.cy,
+        torch.as_tensor(cam.transform, device=dev))
+    m, _ = accel._prepass(accel.march_inputs(tree, dirs, dirs, cen, opt),
+                          table)
+    args = (tree, leaf_map, m.cen, m.d, m.invdir, m.delta_scale, m.tmin,
+            m.tmax, m.miss, m.basis, m.step_size, m.sigma_thresh,
+            m.stop_thresh, accel._FALLBACK_MD, m.use_sh)
+    bufs = kernels.march(*args)
+    into = (bufs[0], bufs[2], bufs[3])
+    closed = torch.zeros(len(starved), dtype=torch.int32, device=dev)
+    opened = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    sentinel = tuple(b.clone().fill_(-7) for b in into)
+    res = kernels.march(*args, gate=closed, into=sentinel)
+    torch.cuda.synchronize()
+    check(all(bool((b == -7).all()) for b in sentinel) and int(res[1]) == 0,
+          "the closed gate wrote its buffers")
+    res = kernels.march(*args, gate=opened, into=sentinel)
+    plain = accel.render_rays_fast_reference(*args)
+    err_g = float((res[0] - plain[0]).abs().max())
+    check(torch.equal(res[2], plain[2]) and torch.equal(res[3], plain[3])
+          and int(res[1]) == int(plain[1]) and err_g <= 1e-6
+          and all(torch.equal(a, b) for a, b in zip(res, bufs)),
+          f"the taken gated march differs: max abs diff {err_g}")
+    ms_open, by_open = device_ms(
+        lambda: kernels.march(*args, gate=opened, into=into), 20)
+    ms_closed, by_closed = device_ms(
+        lambda: kernels.march(*args, gate=closed, into=into), 20)
+    ms_plain_launch, by_plain = device_ms(lambda: kernels.march(*args), 20)
+    plain_g = cuda_ms(lambda: accel.render_rays_fast_reference(*args), 2)
+    steps_total = int(res[2].sum())
+    shaded = int(res[3].clamp(max=accel._FALLBACK_MD).sum())
+    B = m.basis.shape[1]
+    bg, bg_by = bound_ms(
+        nbytes(m.d, m.invdir, m.delta_scale, m.tmin, m.tmax, m.miss,
+               m.basis, res[0], res[2], res[3])
+        + 8 * steps_total + 2 * tree.data_dim * shaded,
+        MARCH_OPS_PER_STEP * steps_total + (6 * B + 15) * shaded)
+    log(f"kernel march_gated ({n_pad} rays, budget {accel._FALLBACK_MD}): "
+        f"taken {ms_open:.4f} ms ({by_open}), closed {ms_closed:.4f} ms "
+        f"({by_closed}), the ungated launch {ms_plain_launch:.4f} ms "
+        f"({by_plain}); plain {plain_g:.2f} ms, bound {bg:.4f} ms by "
+        f"{bg_by}; max abs diff {err_g:.3e}, integers equal, bit-equal to "
+        f"the ungated launch, the closed gate left its buffers untouched")
+    report.append(dict(
+        name="march_gated", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/march.cu",
+        replaces="mega_nerf_viewer_tpu/ops/accel.py:780",
+        max_abs_err=err_g, ms=ms_open, ms_by=by_open, closed_ms=ms_closed,
+        plain_ms=plain_g, bound_ms=bg, bound_by=bg_by, library_ms=None))
+    return launches
+
+
 def depth_bound(total, R):
     """Bytes and operations of one compact depth composite: sigma and z of
     each valid sample, offs, ns and the rgba out; DEPTH_OPS per sample."""
@@ -1781,11 +2093,13 @@ class SameDraws:
 
 def small_viewer(P, dev):
     """Phase 18: a small Viewer session (64x48, sphere trees) on the card
-    and on the CPU: parked and orbit frames, guided frames, split frames
-    and guided split frames.  On every frame the hints or sample counts,
+    and on the CPU: parked and orbit frames, async re-hint poses, a device
+    policy frame on starved budgets, guided frames, split frames and guided
+    split frames.  On every frame the hints or sample counts,
     orders, segments and capacity are equal and the frames within 1e-5;
     refined data within one f16 ulp, and split frames within 1e-5 while
     the data they render stays bit-equal."""
+    from mega_nerf_viewer_tpu_torch import viewer as VI
     from mega_nerf_viewer_tpu_torch.ops import refine
 
     def cam():
@@ -1840,6 +2154,26 @@ def small_viewer(P, dev):
             rec["guided"].append((img, host(cache["num_samples"]),
                                   [host(t) for t in v._guided_order],
                                   v._guided_segments))
+        # the async policy's re-hint poses and the device policy's starved
+        # frame (the gated fallback)
+        for key, policy in (("rehint", "async"), ("device", "device")):
+            v = P.Viewer(P.sphere_tree(basis_dim=4, depth=5, device=d),
+                         camera=cam(), device=d)
+            v.fast_chunk_size = 256
+            v.overflow_policy = policy
+            rec[key] = []
+            for i in range(5):
+                if i == 2 and policy == "device":
+                    v._segments = [(0.75, 0), (0.25, 1)]
+                elif i >= 2:
+                    motion_step(v.camera, 3.0)
+                img = host(v.render(fetch=False))
+                p = v._pending_ov
+                rec[key].append((
+                    img, [host(t) for t in v._ray_order],
+                    None if v._qperm is None else host(v._qperm),
+                    v._segments_motion, v._segments,
+                    None if p is None else VI._host_array(p[1])))
         # split frames, then guided split frames (the exact collect and
         # the padded compositor), each from the same draws
         for key, kw in (("split", {}), ("guided_split", dict(
@@ -1876,6 +2210,21 @@ def small_viewer(P, dev):
         check(all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
               and a[3] == b[3], f"card and CPU guided orders or segments "
               f"differ at frame {i}")
+    for key in ("rehint", "device"):
+        for i, (a, b) in enumerate(zip(cpu[key], card[key])):
+            err = float((a[0] - b[0]).abs().max())
+            log(f"small viewer {key} frame {i}: max abs diff {err:.3e}, "
+                f"flags {None if b[5] is None else b[5].tolist()}")
+            check(err <= 1e-5, f"card and CPU {key} frames differ at frame "
+                  f"{i}")
+            check(all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                  and (a[2] is None) == (b[2] is None)
+                  and (a[2] is None or torch.equal(a[2], b[2]))
+                  and a[3] == b[3] and a[4] == b[4]
+                  and (a[5] is None) == (b[5] is None)
+                  and (a[5] is None or np.array_equal(a[5], b[5])),
+                  f"card and CPU {key} orders, quarter orders, segments or "
+                  f"flags differ at frame {i}")
     for key in ("split", "guided_split"):
         exact_data = True
         for i, (a, b) in enumerate(zip(cpu[key], card[key])):

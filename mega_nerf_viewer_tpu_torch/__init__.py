@@ -16,7 +16,10 @@ mode; its kernels are the exact march, the exact collect and the padded
 compositor, and the fused march gained votes and depth.  The fourth is the
 user-facing path: the :class:`Viewer` session (``viewer.py``), the headless
 ``api`` and the ``cli``, with depth mode in the compact compositor and the
-row-gather probe (``probes/gather_probe.py``).  Entry points run
+row-gather probe (``probes/gather_probe.py``).  The fifth is the camera in
+motion: the Viewer's async and device overflow policies (the device
+fallback march is a gated launch of the fused march), the re-hint motion
+frame, the turbo leaf map and chunk-exact segment budgets.  Entry points run
 on the CUDA card unless they are given ``device="cpu"``, where the
 kernels' plain PyTorch versions run instead.
 """
@@ -25,9 +28,12 @@ from .camera import Camera
 from .models import MegaNeRFModel
 from .options import RenderOptions
 from .n3tree import N3Tree, shell_tree, sphere_tree, tree_from_numpy
-from .ops.accel import (DEFAULT_SEGMENTS, LeafMap, build_leaf_map,
-                        order_from_hints, render_frame_fast,
-                        render_frame_fast_segmented, render_rays_fast)
+from .ops.accel import (CHUNK_EXACT_BUDGETS, DEFAULT_SEGMENTS, LeafMap,
+                        build_leaf_map, build_turbo_leaf_map,
+                        order_from_hints, order_from_steps,
+                        quarter_order_from_packed, render_frame_fast,
+                        render_frame_fast_segmented, render_frame_motion,
+                        render_rays_fast, seg_counts_from_hints)
 from .ops.guided import (GuidedSamples, collect_and_query,
                          collect_and_query_fast, collect_samples,
                          composite_frame, composite_results,
@@ -44,7 +50,9 @@ __all__ = [
     "Camera", "RenderOptions", "N3Tree", "shell_tree", "sphere_tree",
     "tree_from_numpy", "DEFAULT_SEGMENTS", "LeafMap", "build_leaf_map",
     "order_from_hints", "render_frame_fast", "render_frame_fast_segmented",
-    "render_rays_fast", "build_skip_table", "entry_skip_prepass",
+    "render_rays_fast", "CHUNK_EXACT_BUDGETS", "build_turbo_leaf_map",
+    "order_from_steps", "quarter_order_from_packed", "render_frame_motion",
+    "seg_counts_from_hints", "build_skip_table", "entry_skip_prepass",
     "device_tuning", "MegaNeRFModel", "collect_and_query_fast",
     "composite_frame", "segments_from_ns_hints", "GuidedSamples",
     "collect_and_query", "collect_samples", "composite_results",

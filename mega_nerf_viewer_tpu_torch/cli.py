@@ -9,9 +9,11 @@ runs the kernels' plain versions).  Run it as::
 
     python -m mega_nerf_viewer_tpu_torch.cli tree.npz --orbit --frames 4
 
-Not ported yet, and refused: ``--serve`` (the browser viewer) and
-``--sharded`` (ROADMAP queue 1, items 9 and 10); ``--turbo`` and
-``--foveation`` > 1 make the viewer raise (items 8 and 9).
+``--turbo`` renders on the turbo leaf map and ``--motion-mode`` picks how
+the viewer's async policy regains ray orders under motion.  Not ported
+yet, and refused: ``--serve`` (the browser viewer) and ``--sharded``
+(ROADMAP queue 1, items 9 and 10); ``--foveation`` > 1 makes the viewer
+raise (item 9).
 """
 
 from __future__ import annotations
@@ -96,15 +98,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="shard rays across all local devices (not ported)")
     p.add_argument("--turbo", action="store_true",
-                   help="max-empty-cube accelerated marching (not ported)")
+                   help="max-empty-cube accelerated marching (output "
+                        "within 1e-3 of the exact walk)")
     p.add_argument("--foveation", type=int, default=1,
                    help="approximate foveated mode, 1 = off (> 1 not "
                         "ported)")
     p.add_argument("--motion-mode", choices=("rehint", "dilate"),
                    default="rehint",
                    help="how async-policy moved frames regain ray order "
-                        "and budgets; accepted and ignored: the CLI runs "
-                        "the sync policy, which always dilates")
+                        "and budgets: 'rehint' measures each pose with a "
+                        "quarter-resolution count march; 'dilate' predicts "
+                        "classes from the previous pose's dilated hints")
     p.add_argument("--host-unpermute", action="store_true",
                    help="sorted-frame display delivery: parked frames "
                         "skip the final unpermute and the PNG writer "
@@ -162,6 +166,7 @@ def main(argv=None) -> int:
     viewer.use_turbo_map = args.turbo
     viewer.foveation = args.foveation
     viewer.host_unpermute = args.host_unpermute
+    viewer.motion_mode = args.motion_mode
 
     if args.model_path:
         viewer.load_model(args.model_path)

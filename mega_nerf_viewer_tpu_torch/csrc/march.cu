@@ -33,6 +33,16 @@
 // for the recorded samples and writes min(0.3 * sum, 1) in grey with
 // alpha 1; with max_dense = 0 it writes (0, 0, 0, 1).
 //
+// The gated launch (the device overflow policy's fallback march,
+// accel.py:735-770): with a non-null gate, the kernel reads the n_gate
+// segment overflow counts behind it first, and when all are 0 every thread
+// returns before it loads anything or writes any output, so the caller's
+// buffers keep the segmented frame.  When one is not 0 the launch re-marches
+// the whole sorted frame into those buffers.  JAX takes this branch with
+// lax.cond; here the decision stays on the device and no count crosses to
+// the host.  An ungated launch passes a null gate and pays one test of a
+// kernel parameter.
+//
 // Design, simple first: no shared memory, no async copies; rays that are
 // neighbours in the frame order are neighbours in a warp, so their row
 // reads fall on nearby cells.  The step itself is march_step
@@ -54,7 +64,13 @@ march_kernel(LeafMapTree tr, const float* __restrict__ cen,
              int* __restrict__ nrec_out, int* __restrict__ overflow,
              const short* __restrict__ counts, int need_votes, int max_depth,
              int max_sample_count, int render_depth,
-             float* __restrict__ sv_out, float* __restrict__ pv_out) {
+             float* __restrict__ sv_out, float* __restrict__ pv_out,
+             const int* __restrict__ gate, int n_gate) {
+  if (gate != nullptr) {
+    int any = 0;
+    for (int i = 0; i < n_gate; ++i) any |= gate[i];
+    if (any == 0) return;
+  }
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
 
@@ -161,7 +177,7 @@ extern "C" int march_launch(
     float sigma_thresh, float stop_thresh, int max_dense, int R, void* out,
     void* nsteps, void* nrec, void* overflow, const void* counts,
     int need_votes, int max_depth, int max_sample_count, int render_depth,
-    void* sv, void* pv, void* stream) {
+    void* sv, void* pv, const void* gate, int n_gate, void* stream) {
   const int grid = (R + mnv::kBlock - 1) / mnv::kBlock;
   const mnv::LeafMapTree tr{
       static_cast<const int*>(child), n_child,
@@ -179,6 +195,6 @@ extern "C" int march_launch(
       static_cast<int*>(nrec), static_cast<int*>(overflow),
       static_cast<const short*>(counts), need_votes, max_depth,
       max_sample_count, render_depth, static_cast<float*>(sv),
-      static_cast<float*>(pv));
+      static_cast<float*>(pv), static_cast<const int*>(gate), n_gate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,3 +19,15 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def host_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host data ``x`` as a ``dtype`` tensor on ``device``.  To a CUDA
+    device it goes through pinned memory with a non-blocking copy, so
+    building a frame's small inputs (camera, bbox) never waits on the card;
+    elsewhere this is ``torch.as_tensor``."""
+    device = torch.device(device)
+    t = torch.as_tensor(x, dtype=dtype)
+    if t.device == device or device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

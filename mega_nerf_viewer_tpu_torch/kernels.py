@@ -45,7 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"skip_prepass": 0, "march": 0, "collect": 0,
+LAUNCHES = {"skip_prepass": 0, "march": 0, "march_gated": 0, "collect": 0,
             "compact_composite": 0, "compact_composite_depth": 0,
             "exact_march": 0, "exact_collect": 0, "padded_composite": 0,
             "gather_chunk_sums": 0}
@@ -65,10 +65,11 @@ _SIGNATURES = {
     # deep_levels, cen, d, invdir, delta_scale, tmin, tmax, miss, basis,
     # basis_dim, use_sh, step_size, sigma_thresh, stop_thresh, max_dense,
     # R, out, nsteps, nrec, overflow, counts, need_votes, max_depth,
-    # max_sample_count, render_depth, split_vote, sample_vote, stream
+    # max_sample_count, render_depth, split_vote, sample_vote, gate, n_gate,
+    # stream
     "march_launch": (_P, _L, _P, _L, _I, _P, _L, _I, _I, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _P,
-                     _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+                     _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P),
     # child, n_child, data, n_nodes, data_dim, rows, n_cells, level,
     # deep_levels, cen, d, invdir, delta_scale, tmin, tmax, miss, S,
     # step_size, sigma_thresh, stop_thresh, R, t_buf, ns, steps, overflow,
@@ -261,11 +262,17 @@ def _check_rays(dev, R, cen, d, invdir, delta_scale, tmin, tmax, miss):
 
 def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
           basis, step_size, sigma_thresh, stop_thresh, max_dense, use_sh,
-          votes=None, render_depth=False):
+          votes=None, render_depth=False, gate=None, into=None):
     """Launch the fused march kernel (csrc/march.cu).  ``votes`` =
     (max_depth, max_sample_count) keeps the split and sample votes.
     Returns (out [R, 4] f32, overflow count [] i32, nsteps [R] i32, nrec
-    [R] i32[, split_vote, sample_vote [R, 3] f32 with ``votes``])."""
+    [R] i32[, split_vote, sample_vote [R, 3] f32 with ``votes``]).
+
+    ``gate`` (i32 [k] on the card) makes it the gated launch: the kernel
+    marches only if a count behind the gate is not 0, and writes into
+    ``into`` = (out, nsteps, nrec[, split_vote, sample_vote]), which it
+    leaves untouched otherwise; the overflow count is then 0.  Counted
+    under ``march_gated``."""
     dev = _cuda_device(d)
     R = d.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -276,21 +283,36 @@ def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
     _check("basis", basis, f32, (R, B), dev)
     if use_sh and 3 * B + 1 > D:
         raise ValueError(f"basis dim {B} does not fit data_dim {D}")
-    out = torch.empty((R, 4), dtype=f32, device=dev)
-    nsteps = torch.empty((R,), dtype=i32, device=dev)
-    nrec = torch.empty((R,), dtype=i32, device=dev)
+    if (gate is None) != (into is None):
+        raise ValueError("a gated launch takes both gate and into")
+    n_out = 3 if votes is None else 5
+    if into is None:
+        into = (torch.empty((R, 4), dtype=f32, device=dev),
+                torch.empty((R,), dtype=i32, device=dev),
+                torch.empty((R,), dtype=i32, device=dev))
+        if votes is not None:
+            into += (torch.empty((R, 3), dtype=f32, device=dev),
+                     torch.empty((R, 3), dtype=f32, device=dev))
+    else:
+        if len(into) != n_out:
+            raise ValueError(f"into: {len(into)} buffers, expected {n_out}")
+        _check("gate", gate, i32, (gate.numel(),), dev)
+        for name, t, dtype, shape in zip(
+                ("out", "nsteps", "nrec", "split_vote", "sample_vote"),
+                into, (f32, i32, i32, f32, f32),
+                ((R, 4), (R,), (R,), (R, 3), (R, 3))):
+            _check(name, t, dtype, shape, dev)
+    out, nsteps, nrec = into[:3]
+    sv, pv = into[3:] if votes is not None else (None, None)
     overflow = torch.zeros((), dtype=i32, device=dev)
-    sv = pv = None
     max_depth = max_sc = 0
     if votes is not None:
         _check("sample_counts", tree.sample_counts, torch.int16,
                tuple(tree.sample_counts.shape), dev)
-        sv = torch.empty((R, 3), dtype=f32, device=dev)
-        pv = torch.empty((R, 3), dtype=f32, device=dev)
         max_depth, max_sc = (int(k) for k in votes)
-    extra = () if votes is None else (sv, pv)
+    res = (out, overflow, nsteps, nrec) + tuple(into[3:])
     if R == 0:
-        return (out, overflow, nsteps, nrec) + extra
+        return res
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.march_launch(
@@ -303,10 +325,12 @@ def march(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,
             tree.sample_counts.data_ptr(), int(votes is not None), max_depth,
             max_sc, int(bool(render_depth)),
             None if sv is None else sv.data_ptr(),
-            None if pv is None else pv.data_ptr(), _stream(dev))
+            None if pv is None else pv.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            0 if gate is None else gate.numel(), _stream(dev))
     _raise_on(err, "march")
-    LAUNCHES["march"] += 1
-    return (out, overflow, nsteps, nrec) + extra
+    LAUNCHES["march" if gate is None else "march_gated"] += 1
+    return res
 
 
 def collect(tree, leaf_map, cen, d, invdir, delta_scale, tmin, tmax, miss,

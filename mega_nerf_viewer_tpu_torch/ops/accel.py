@@ -17,7 +17,16 @@ leaf-map voxel frame:
     batched torch ops with the record buffer and deferred shading.
   * The record-sorted segmented frame (:func:`render_frame_fast_segmented`)
     sorts rays by the previous frame's hints (:func:`order_from_hints`)
-    and marches each segment with its own ``max_dense`` budget.
+    and marches each segment with its own ``max_dense`` budget; with
+    ``device_fallback`` a gated launch of the march re-marches the whole
+    frame at budget 128 when a segment overflowed, decided on the card.
+  * The re-hint motion frame (:func:`render_frame_motion`): a budget-0
+    count march over a stale order measures each ray's record need, the
+    rays are sorted by it and the segmented frame marches at steady
+    budgets.
+  * The turbo leaf map (:func:`build_turbo_leaf_map`): empty cells take
+    the depth of their largest empty aligned cube, so the march crosses
+    empty space in fewer steps.
 
 Exactness: for N == 2 the leaf found, its depth, the in-leaf position and
 sigma are those of the reference descent, so step positions and early
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import resolve_device
+from ..device import host_tensor, resolve_device
 from ..n3tree.tree import N3Tree
 from ..options import RenderOptions
 from .fp import fma_f32, pow2_f32, rsqrt_f32
@@ -155,6 +164,51 @@ def build_leaf_map(tree: N3Tree, level: Optional[int] = None) -> LeafMap:
     deep = max(0, max_d - level)
     return LeafMap(rows=_build_rows(tree, level, deep), level=level,
                    deep_levels=deep)
+
+
+def _turbo_rows(rows: torch.Tensor, level: int,
+                sigma_thresh: float) -> torch.Tensor:
+    """Rewrite empty cells' depth to that of the largest fully empty
+    aligned cube holding them (``accel.py:198-241``): an occupancy mip over
+    the leaf map.  A cell is occupied when it is internal or its sigma
+    exceeds ``sigma_thresh``.  JAX up-samples each mip level back to the
+    full grid; here the coarsest empty level is carried down the lattice
+    one level at a time (as :func:`_build_rows` carries its descent), which
+    gives the same rows without a full grid per level."""
+    G = 1 << level
+    meta = rows[:, 1]
+    sigma = _f16_bits_to_f32((meta >> 16) & 0xFFFF)
+    internal = (meta & _INTERNAL_BIT) != 0
+    occ = (internal | (sigma > _f32(sigma_thresh))).reshape(G, G, G)
+    mips = [occ]                       # mips[k]: the grid of side G >> k
+    for k in range(level):
+        g = G >> (k + 1)
+        mips.append(mips[-1].reshape(g, 2, g, 2, g, 2).any(5).any(3).any(1))
+    # eff: the level of the coarsest empty aligned cube, ``level`` while
+    # none is found yet (a found one is always coarser than ``level``)
+    eff = torch.where(mips[level], level, 0).to(torch.int32)
+    for l in range(1, level + 1):
+        eff = _up(eff)
+        eff = torch.where((eff == level) & ~mips[level - l], l,
+                          eff).to(torch.int32)
+    empty = ~occ.reshape(-1)
+    depth = meta & _DEPTH_BITS
+    new_depth = torch.where(empty, torch.minimum(eff.reshape(-1), depth),
+                            depth)
+    return torch.stack([rows[:, 0], (meta & ~_DEPTH_BITS) | new_depth],
+                       dim=-1).contiguous()
+
+
+def build_turbo_leaf_map(tree: N3Tree, level: Optional[int] = None,
+                         sigma_thresh: float = 1e-2) -> LeafMap:
+    """Leaf map with max-empty-cube acceleration (``accel.py:244-255``).
+    Valid for renders with ``opt.sigma_thresh >= sigma_thresh``; not for
+    vote or visit frames (empty leaves lose their identity).  Output
+    drifts from the plain map's only by the ``step_size`` epsilons of the
+    steps it skips (within 1e-3)."""
+    lm = build_leaf_map(tree, level=level)
+    return LeafMap(rows=_turbo_rows(lm.rows, lm.level, float(sigma_thresh)),
+                   level=lm.level, deep_levels=lm.deep_levels)
 
 
 class FastRenderResult(NamedTuple):
@@ -311,19 +365,33 @@ def _prepass(m: MarchInputs, skip_table: Optional[torch.Tensor]):
 
 
 def fused_march(tree: N3Tree, leaf_map: LeafMap, m: MarchInputs,
-                max_dense: int, chunk_size: int = 0, votes=None):
+                max_dense: int, chunk_size: int = 0, votes=None,
+                gate: Optional[torch.Tensor] = None, into=None):
     """The march from ``m``: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  ``votes`` = (max_depth, max_sample_count)
     asks for the split and sample votes.  Returns (out [R, 4], overflow
     count [] i32, nsteps [R] i32, nrec [R] i32[, split_vote, sample_vote
-    [R, 3] with ``votes``])."""
+    [R, 3] with ``votes``]).
+
+    ``gate`` (i32 counts) with ``into`` = (out, nsteps, nrec[, split_vote,
+    sample_vote]) buffers is the gated march: it runs, into those buffers,
+    only if a count is not 0, and otherwise leaves them as they are with
+    an overflow count of 0.  The kernel decides on the card; the plain
+    version branches on the host."""
     args = (tree, leaf_map, m.cen, m.d, m.invdir, m.delta_scale, m.tmin,
             m.tmax, m.miss, m.basis, m.step_size, m.sigma_thresh,
             m.stop_thresh, int(max_dense), m.use_sh)
     kw = dict(votes=votes, render_depth=m.render_depth)
-    if m.d.device.type == "cpu":
-        return render_rays_fast_reference(*args, chunk_size=chunk_size, **kw)
-    return kernels.march(*args, **kw)
+    if m.d.device.type != "cpu":
+        return kernels.march(*args, gate=gate, into=into, **kw)
+    if gate is not None and not bool((gate != 0).any()):
+        return (into[0], torch.zeros((), dtype=torch.int32)) + tuple(into[1:])
+    res = render_rays_fast_reference(*args, chunk_size=chunk_size, **kw)
+    if into is None:
+        return res
+    for buf, r in zip(into, res[:1] + res[2:]):
+        buf.copy_(r)
+    return (into[0], res[1]) + tuple(into[1:])
 
 
 def render_rays_fast(tree: N3Tree,
@@ -480,13 +548,18 @@ def render_rays_fast_reference(tree, leaf_map, cen, d, invdir, delta_scale,
 # ----------------------------------------------------------------------
 # Frames
 # ----------------------------------------------------------------------
+# budget of the device fallback march: the escalation protocol's ceiling
+_FALLBACK_MD = 128
+
+
 def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                 perm: torch.Tensor, inv: torch.Tensor,
                 camera, opt: RenderOptions,
                 skip_table: Optional[torch.Tensor],
                 *, seg_counts: tuple, chunk_size: int,
                 return_hints, group: int = 1,
-                sorted_output: bool = False, need_votes: bool = False):
+                sorted_output: bool = False, need_votes: bool = False,
+                device_fallback: bool = False, on_flags=None):
     """One fast frame: raygen in ``perm`` order -> setup -> (prepass) ->
     march per segment -> unpermute -> background composite.  ``seg_counts`` =
     ((n_chunks, max_dense), ...); the frame is padded to whole chunks
@@ -497,14 +570,22 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     ``need_votes`` adds ``split_vote`` and ``sample_vote`` in pixel
     order.  ``return_hints`` adds ``steps``, ``nrec`` and ``skips`` in
     pixel order, or, as ``"packed"``, one ``hints_packed`` array in
-    :func:`pack_hints` layout (``accel.py:708-723``, ``:821-822``)."""
+    :func:`pack_hints` layout (``accel.py:708-723``, ``:821-822``).
+
+    ``device_fallback`` (``accel.py:735-770``): when a segment overflowed,
+    the whole sorted frame is marched again at budget ``_FALLBACK_MD``,
+    into the segments' buffers, by a gated launch of the march that reads
+    the overflow counts on the card; ``fb_overflow`` counts the rays that
+    overflowed even that.  Nothing crosses to the host.  ``on_flags``, if
+    given, is called with a dict of the frame's overflow counts (device
+    tensors) as soon as the marches are queued, before the unpermute and
+    the composite."""
     dev = tree.device
     R = inv.shape[0]
     n_total = sum(c for c, _ in seg_counts) * chunk_size
     pad = n_total - R
     pix = perm if not pad else torch.cat([perm, perm[-1:].expand(pad)])
-    transform = torch.as_tensor(camera.transform, dtype=torch.float32,
-                                device=dev)
+    transform = host_tensor(camera.transform, torch.float32, dev)
     dirs_p, cen = screen2worlddir_indices(
         pix, camera.width, camera.fx, camera.fy, camera.cx, camera.cy,
         transform)
@@ -514,7 +595,8 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     m, skips = _prepass(march_inputs(tree, dirs_p, vdirs_p, cen, opt),
                         skip_table)
 
-    outs, ovs, steps, nrec, svs, pvs = [], [], [], [], [], []
+    parts = [[] for _ in range(5)]     # out, steps, nrec, split, sample
+    ovs = []
     votes = _vote_knobs(opt) if need_votes else None
     off = 0
     for c_chunks, md in seg_counts:
@@ -525,17 +607,21 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
         sl = slice(off, off + c_chunks * chunk_size)
         res = fused_march(tree, leaf_map, slice_rays(m, sl), md,
                           chunk_size, votes)
-        out, overflow, st, nr = res[:4]
-        if need_votes:
-            svs.append(res[4])
-            pvs.append(res[5])
-        outs.append(out)
-        ovs.append(overflow)
-        steps.append(st)
-        nrec.append(nr)
+        ovs.append(res[1])
+        for lst, r in zip(parts, res[:1] + res[2:]):
+            lst.append(r)
         off += c_chunks * chunk_size
+    bufs = tuple(torch.cat(lst, 0) for lst in parts if lst)
+    seg_overflow = torch.stack(ovs)
+    flags = dict(seg_overflow=seg_overflow)
+    if device_fallback:
+        flags["fb_overflow"] = fused_march(
+            tree, leaf_map, m, _FALLBACK_MD, chunk_size, votes,
+            gate=seg_overflow, into=bufs)[1]
+    if on_flags is not None:
+        on_flags(flags)
 
-    out = torch.cat(outs, 0)[:R]
+    out, steps, nrec = (b[:R] for b in bufs[:3])
     if sorted_output:
         pass
     elif group > 1 and R % group == 0:
@@ -543,19 +629,16 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
         out = out.reshape(R // group, 4 * group)[ginv].reshape(R, 4)
     else:
         out = out[inv]
-    ret = dict(img=composite_background(out, opt),
-               seg_overflow=torch.stack(ovs))
+    ret = dict(img=composite_background(out, opt), **flags)
     if need_votes:
-        ret["split_vote"] = torch.cat(svs, 0)[:R][inv]
-        ret["sample_vote"] = torch.cat(pvs, 0)[:R][inv]
+        ret["split_vote"] = bufs[3][:R][inv]
+        ret["sample_vote"] = bufs[4][:R][inv]
     if return_hints == "packed":
         # one [R] i32 and one unpermute gather instead of three
-        ret["hints_packed"] = pack_hints(torch.cat(steps, 0)[:R],
-                                         torch.cat(nrec, 0)[:R],
-                                         skips[:R])[inv]
+        ret["hints_packed"] = pack_hints(steps, nrec, skips[:R])[inv]
     elif return_hints:
-        ret["steps"] = torch.cat(steps, 0)[:R][inv]
-        ret["nrec"] = torch.cat(nrec, 0)[:R][inv]
+        ret["steps"] = steps[inv]
+        ret["nrec"] = nrec[inv]
         ret["skips"] = skips[:R][inv]
     return ret
 
@@ -580,6 +663,14 @@ def _argsort_stable(key: torch.Tensor):
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.numel(), device=perm.device)
     return perm, inv
+
+
+def order_from_steps(steps) -> tuple:
+    """(perm, inv) ray order from per-ray march costs, the ``steps`` of a
+    previous frame (``accel.py:1231-1236``): a stable sort, as JAX's
+    counting sort, so the permutation is the same.  int64 tensors on the
+    steps' device."""
+    return _argsort_stable(torch.as_tensor(steps).to(torch.int64))
 
 
 def order_from_hints(steps, nrec, skips=None, group: int = 1):
@@ -790,6 +881,7 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
                       max_dense: int = 64,
                       chunk_size: int = 65536,
                       block: int = 128,
+                      step_hint=None,
                       order: Optional[tuple] = None,
                       return_nrec: bool = False,
                       skip_table: Optional[torch.Tensor] = None,
@@ -797,8 +889,10 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
                       need_votes: bool = False):
     """Full fast frame at one ``max_dense`` budget.
 
-    Rays go in ``order`` = (perm, inv), or else in square pixel blocks of
-    ``block``.  Ordering only affects speed; pixels are identical.
+    Rays go in ``order`` = (perm, inv), or else in the order of
+    :func:`order_from_steps` of ``step_hint`` (a previous frame's steps),
+    or else in square pixel blocks of ``block``.  Ordering only affects
+    speed; pixels are identical.
     Returns ([H, W, 4] f32, overflow count, steps [H*W] i32) and then, as
     asked, (split_vote, sample_vote [H*W, 3]) with ``need_votes``, nrec
     and skips, all in pixel order."""
@@ -806,8 +900,12 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
     R = w * h
     dev = tree.device
     if chunk_size and R > chunk_size:
-        perm, inv = order if order is not None else block_permutation(
-            w, h, block, device=dev)
+        if order is not None:
+            perm, inv = order
+        elif step_hint is not None:
+            perm, inv = order_from_steps(step_hint)
+        else:
+            perm, inv = block_permutation(w, h, block, device=dev)
         n_chunks = (R + chunk_size - 1) // chunk_size
         res = _frame_core(tree, leaf_map, perm, inv, camera, opt,
                           skip_table, seg_counts=((n_chunks, max_dense),),
@@ -864,6 +962,58 @@ def segment_chunks(n_chunks: int, segments,
     return tuple(counts)
 
 
+# budgets that chunk-exact segments round up to (``accel.py:1107-1110``)
+CHUNK_EXACT_BUDGETS = (0, 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32,
+                       48, 64, 96, 128)
+
+
+def seg_counts_from_hints(nrec_sorted, chunk_size: int,
+                          quantum: int = 1,
+                          budgets: tuple = CHUNK_EXACT_BUDGETS) -> tuple:
+    """Chunk-exact segment budgets from SORTED record hints
+    (``accel.py:1113-1176``), host numpy as in JAX.
+
+    Each chunk's budget is the max of its rays' hints rounded up into
+    ``budgets`` (made monotone), runs of equal budgets merge, and with
+    ``quantum`` > 1 each run's chunk count rounds down to a multiple by
+    moving the remainder into the next, richer run.  Returns
+    ``((n_chunks, budget), ...)``, the ``seg_counts`` layout; raises
+    ``ValueError`` when a hint exceeds the largest budget."""
+    nh = np.asarray(nrec_sorted.cpu() if isinstance(nrec_sorted,
+                                                    torch.Tensor)
+                    else nrec_sorted)
+    R = nh.size
+    pad = (-R) % (chunk_size * max(quantum, 1))
+    if pad:
+        nh = np.concatenate([nh, np.full(pad, nh[-1], nh.dtype)])
+    cmax = nh.reshape(-1, chunk_size).max(1)
+    bu = np.asarray(budgets)
+    if cmax.max() > bu[-1]:
+        raise ValueError(f"hint max {cmax.max()} exceeds budget cap "
+                         f"{bu[-1]}")
+    q = np.maximum.accumulate(bu[np.searchsorted(bu, cmax, side="left")])
+    runs = []
+    for b in q:
+        if runs and runs[-1][1] == int(b):
+            runs[-1][0] += 1
+        else:
+            runs.append([1, int(b)])
+    if quantum > 1:
+        for i in range(len(runs) - 1):
+            rem = runs[i][0] % quantum
+            if rem:
+                runs[i][0] -= rem
+                runs[i + 1][0] += rem
+        merged = []
+        for n, b in (r for r in runs if r[0] > 0):
+            if merged and merged[-1][1] == b:
+                merged[-1][0] += n
+            else:
+                merged.append([n, b])
+        runs = merged
+    return tuple((n, b) for n, b in runs)
+
+
 def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
                                 camera, opt: RenderOptions,
                                 order: tuple,
@@ -873,55 +1023,216 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
                                 group: int = 1,
                                 return_hints: bool = False,
                                 sorted_output: bool = False,
-                                need_votes: bool = False):
+                                need_votes: bool = False,
+                                device_fallback: bool = False,
+                                seg_counts: Optional[tuple] = None,
+                                on_flags=None):
     """Record-sorted segmented fast frame.
 
     ``order`` comes from :func:`order_from_hints`; each contiguous ray
     segment marches with its own ``max_dense`` budget.  Pixels equal the
     unsegmented frame's; a ray beyond its segment's budget raises that
     segment's overflow count so the caller can escalate.
+    ``seg_counts`` = ((n_chunks, max_dense), ...) from
+    :func:`seg_counts_from_hints` gives the chunk layout directly, and
+    ``segments`` is then ignored.  ``device_fallback`` re-marches the whole
+    frame at budget 128 on the card when a segment overflowed (see
+    :func:`_frame_core`), so the frame is right without a host check;
+    ``fb_overflow`` counts the rays beyond even that.  ``on_flags``: see
+    :func:`_frame_core`.
 
     Returns (img [H, W, 4] — or flat [R, 4] rows in ``perm`` order when
     ``sorted_output``, so ``img[inv]`` is the pixel-order frame —,
     seg_overflow i32 counts [n_segments][, split_vote, sample_vote when
-    ``need_votes``][, steps, nrec, skips when ``return_hints``, or one
-    :func:`pack_hints` array when ``return_hints="packed"``, as in
-    ``accel.py:1480-1484``]); votes and hints in pixel order.
+    ``need_votes``][, fb_overflow when ``device_fallback``][, steps, nrec,
+    skips when ``return_hints``, or one :func:`pack_hints` array when
+    ``return_hints="packed"``], as in ``accel.py:1480-1484``); votes and
+    hints in pixel order.
     """
     w, h = camera.width, camera.height
     R = w * h
     perm, inv = order
     n_chunks = (R + chunk_size - 1) // chunk_size
-    if n_chunks < len(segments):
-        # fewer chunks than segment classes: one march at the top budget
+    if seg_counts is None and n_chunks < len(segments):
+        # fewer chunks than segment classes: one march at the top budget,
+        # at the fallback's budget under device_fallback
         res = render_frame_fast(
             tree, leaf_map, camera, opt,
-            max_dense=max(md for _, md in segments), chunk_size=chunk_size,
-            order=order, skip_table=skip_table, return_nrec=True,
-            return_skips=True, need_votes=need_votes)
+            max_dense=(_FALLBACK_MD if device_fallback
+                       else max(md for _, md in segments)),
+            chunk_size=chunk_size, order=order, skip_table=skip_table,
+            return_nrec=True, return_skips=True, need_votes=need_votes)
         img, overflow = res[0], res[1]
+        if on_flags is not None:
+            on_flags(dict(seg_overflow=overflow.expand(len(segments)),
+                          **(dict(fb_overflow=overflow) if device_fallback
+                             else {})))
         if sorted_output:
             img = img.reshape(R, 4)[perm]
         out = (img, overflow.expand(len(segments)))
         if need_votes:
             out = out + tuple(res[3:5])
+        if device_fallback:
+            out = out + (overflow,)
         if return_hints == "packed":
             out = out + (pack_hints(res[2], res[-2], res[-1]),)
         elif return_hints:
             out = out + (res[2], res[-2], res[-1])
         return out
+    if seg_counts is None:
+        seg_counts = segment_chunks(n_chunks, segments, n_rays=R,
+                                    chunk_size=chunk_size)
+    elif sum(n for n, _ in seg_counts) != n_chunks:
+        raise ValueError(f"seg_counts {seg_counts} do not cover the "
+                         f"{n_chunks} chunks")
     res = _frame_core(
         tree, leaf_map, perm, inv, camera, opt, skip_table,
-        seg_counts=segment_chunks(n_chunks, segments, n_rays=R,
-                                  chunk_size=chunk_size),
-        chunk_size=chunk_size, return_hints=return_hints, group=group,
-        sorted_output=sorted_output, need_votes=need_votes)
+        seg_counts=tuple(seg_counts), chunk_size=chunk_size,
+        return_hints=return_hints, group=group, sorted_output=sorted_output,
+        need_votes=need_votes, device_fallback=device_fallback,
+        on_flags=on_flags)
     img = res["img"] if sorted_output else res["img"].reshape(h, w, 4)
     out = (img, res["seg_overflow"])
     if need_votes:
         out = out + (res["split_vote"], res["sample_vote"])
+    if device_fallback:
+        out = out + (res["fb_overflow"],)
     if return_hints == "packed":
         out = out + (res["hints_packed"],)
     elif return_hints:
         out = out + (res["steps"], res["nrec"], res["skips"])
     return out
+
+
+# ----------------------------------------------------------------------
+# The re-hint motion frame
+# ----------------------------------------------------------------------
+def _sort_by_key(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` in stable ``key`` order: JAX's two-operand
+    ``lax.sort((key, ids), num_keys=1, is_stable=True)``."""
+    return ids[torch.sort(key, stable=True).indices]
+
+
+def _motion_core(tree: N3Tree, leaf_map: LeafMap, stale_perm: torch.Tensor,
+                 camera, opt: RenderOptions,
+                 skip_table: Optional[torch.Tensor], *, seg_counts: tuple,
+                 chunk_size: int, hint_chunk: int, hint_stride: int = 1,
+                 on_flags=None) -> dict:
+    """Two-pass re-hint motion frame (``accel.py:1585-1718``).
+
+    Pass 1 is the march at budget 0 over the stale order (``hint_stride``
+    2: over the quarter grid of pixels at even rows and columns), with the
+    prepass: its uncapped ``nrec`` is each ray's record need at this pose.
+    The packed keys sort the rays (ties by stale rank); at stride 2 they
+    are scattered to the quarter grid, max-pooled forward one cell per axis
+    with wrap-around, and each cell's key stands for its 2x2 pixel block.
+    Pass 2 is :func:`_frame_core` on the fresh order.  Nothing crosses to
+    the host.  Returns dict(img [R, 4], seg_overflow, perm, inv, cdf[,
+    qperm at stride 2]); ``on_flags`` gets the overflow counts and the
+    CDF (see :func:`_frame_core`)."""
+    dev = tree.device
+    width = camera.width
+    Rm = stale_perm.shape[0]            # marched rays (R or R/4)
+    pad = (-Rm) % hint_chunk
+    pix = stale_perm if not pad else torch.cat(
+        [stale_perm, stale_perm[-1:].expand(pad)])
+    transform = host_tensor(camera.transform, torch.float32, dev)
+    dirs_p, cen = screen2worlddir_indices(
+        pix, width, camera.fx, camera.fy, camera.cx, camera.cy, transform)
+    vdirs_p = rodrigues(opt.rot_dirs, dirs_p)
+    res = render_rays_fast(
+        tree, leaf_map, dirs_p, vdirs_p, cen, opt, max_dense=0,
+        chunk_size=hint_chunk if pix.shape[0] > hint_chunk else 0,
+        skip_table=skip_table)
+    key = pack_hints(res.steps, res.nrec, res.skips)[:Rm]
+    ret = {}
+    if hint_stride == 1:
+        perm = _sort_by_key(key, stale_perm)
+        cdf = hint_class_cdf_packed(key)
+        R = Rm
+    else:
+        ret["qperm"] = _sort_by_key(key, stale_perm)
+        qw = width // 2
+        height = Rm // qw               # the quarter grid is [H/2, W/2]
+        R = Rm * 4
+        py = torch.div(stale_perm, width, rounding_mode="floor")
+        px = stale_perm - py * width
+        qimg = torch.zeros((Rm,), dtype=torch.int32, device=dev)
+        qimg[(py >> 1) * qw + (px >> 1)] = key
+        qimg = qimg.reshape(height, qw)
+        # forward 2x2 max: a block's pixels lie between samples (qy, qx)
+        # and (qy+1, qx+1); the roll wraps at the last row and column
+        for ax in (0, 1):
+            qimg = torch.maximum(qimg, torch.roll(qimg, -1, ax))
+        pooled = qimg.reshape(-1)
+        csort = torch.sort(pooled, stable=True).indices
+        cy = torch.div(csort, qw, rounding_mode="floor")
+        base = cy * 2 * width + (csort - cy * qw) * 2
+        q4 = torch.arange(4, device=dev)
+        perm = (base[:, None] + ((q4 & 1) + (q4 >> 1) * width)[None, :]
+                ).reshape(-1)
+        # each pooled cell covers 4 pixels: class counts x4, max unchanged
+        cdf4 = hint_class_cdf_packed(pooled)
+        cdf = torch.cat([cdf4[:-1] * 4, cdf4[-1:]])
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(R, device=dev)
+
+    def flags(f):
+        on_flags(dict(f, cdf=cdf))
+    out = _frame_core(
+        tree, leaf_map, perm, inv, camera, opt, skip_table,
+        seg_counts=seg_counts, chunk_size=chunk_size, return_hints=False,
+        on_flags=None if on_flags is None else flags)
+    ret.update(img=out["img"], seg_overflow=out["seg_overflow"], perm=perm,
+               inv=inv, cdf=cdf)
+    return ret
+
+
+def render_frame_motion(tree: N3Tree, leaf_map: LeafMap, camera,
+                        opt: RenderOptions, stale_perm: torch.Tensor,
+                        segments=DEFAULT_SEGMENTS,
+                        chunk_size: int = 1 << 15,
+                        skip_table: Optional[torch.Tensor] = None,
+                        hint_chunk: Optional[int] = None,
+                        hint_stride: int = 1, on_flags=None):
+    """Re-hint two-pass motion frame (``accel.py:1721-1768``; see
+    :func:`_motion_core`).
+
+    ``stale_perm`` is any previous pose's ray order; with ``hint_stride=2``
+    the quarter order (the previous pose's ``qperm``, or
+    :func:`quarter_order_from_packed` of steady hints).  Stride 2 falls
+    back to 1 on odd frame sizes; a quarter order of the wrong size raises
+    ``ValueError``.  Pixels equal the steady segmented frame's at the same
+    order and budgets whenever no segment overflows.
+
+    Returns (img [H, W, 4], seg_overflow i32 [n_segments], (perm, inv),
+    cdf i32 [6], qperm or None)."""
+    w, h = camera.width, camera.height
+    R = w * h
+    if hint_stride == 2 and (w % 2 or h % 2):
+        hint_stride = 1                 # the quarter grid needs even sizes
+    if hint_stride == 2 and stale_perm.shape[0] * 4 != R:
+        raise ValueError("hint_stride=2 needs the R/4 quarter order")
+    n_chunks = (R + chunk_size - 1) // chunk_size
+    res = _motion_core(
+        tree, leaf_map, stale_perm, camera, opt, skip_table,
+        seg_counts=segment_chunks(n_chunks, tuple(segments), n_rays=R,
+                                  chunk_size=chunk_size),
+        chunk_size=chunk_size, hint_chunk=int(hint_chunk or chunk_size),
+        hint_stride=hint_stride, on_flags=on_flags)
+    return (res["img"].reshape(h, w, 4), res["seg_overflow"],
+            (res["perm"], res["inv"]), res["cdf"], res.get("qperm"))
+
+
+def quarter_order_from_packed(ph: torch.Tensor, *, width: int):
+    """The first quarter-resolution hint order of a stride-2 motion
+    episode (``accel.py:1771-1785``): the full-frame pixel ids at even rows
+    and columns, stably sorted by their packed hints."""
+    ph = torch.as_tensor(ph)
+    height = ph.shape[0] // width
+    qkey = ph.reshape(height, width)[::2, ::2].reshape(-1)
+    qw = width // 2
+    qi = torch.arange(qkey.shape[0], device=ph.device)
+    qpix = torch.div(qi, qw, rounding_mode="floor") * 2 * width \
+        + (qi % qw) * 2
+    return _sort_by_key(qkey, qpix)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import host_tensor
 from .fp import fma_f32
 
 
@@ -48,8 +49,10 @@ def screen2worlddir_indices(pix: torch.Tensor, width: int, fx, fy, cx, cy,
     f32 = torch.float32
     x = (pix % width).to(f32)
     y = torch.div(pix, width, rounding_mode="floor").to(f32)
-    fx, fy, cx, cy = (torch.as_tensor(a, dtype=f32, device=pix.device)
-                      for a in (fx, fy, cx, cy))
+    # one copy of the four intrinsics, f32-rounded like torch.as_tensor
+    intr = host_tensor(np.asarray([float(a) for a in (fx, fy, cx, cy)],
+                                  np.float32), f32, pix.device)
+    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
     u = (x + 0.5 - cx) / fx
     v = -(y + 0.5 - cy) / fy
     return _cam_to_world(u, v, transform), transform[3, :].to(f32)
@@ -64,7 +67,7 @@ def rodrigues(aa, dirs: torch.Tensor) -> torch.Tensor:
         return dirs
     k_np = aa / angle
     cos_a, sin_a = float(np.cos(angle)), float(np.sin(angle))
-    k = torch.as_tensor(k_np, device=dirs.device)
+    k = host_tensor(k_np, torch.float32, dirs.device)
     cross = torch.cross(k.expand_as(dirs), dirs, dim=-1)
     dot = (dirs * k).sum(-1, keepdim=True)
     return dirs * cos_a + cross * sin_a + k * dot * (1.0 - cos_a)

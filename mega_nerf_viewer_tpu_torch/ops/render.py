@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import host_tensor
 from ..options import RenderOptions
 from .fp import fma_f32, ipow_f32
 
@@ -45,8 +46,10 @@ class RenderResult(NamedTuple):
 def _dda_world_batch(cen: torch.Tensor, invdir: torch.Tensor, bbox):
     """Batched bbox clip (``rt_core.cuh:71-86``). cen [3], invdir [R, 3]."""
     bbox = np.asarray(bbox, np.float32)
-    lo = torch.as_tensor(bbox[:3] + np.float32(1e-6), device=invdir.device)
-    hi = torch.as_tensor(bbox[3:] - np.float32(1e-6), device=invdir.device)
+    lohi = host_tensor(np.concatenate([bbox[:3] + np.float32(1e-6),
+                                       bbox[3:] - np.float32(1e-6)]),
+                       torch.float32, invdir.device)
+    lo, hi = lohi[:3], lohi[3:]
     t1 = (lo - cen)[None, :] * invdir
     t2 = (hi - cen)[None, :] * invdir
     tmin = torch.clamp_min(torch.minimum(t1, t2).amax(-1), 0.0)

@@ -15,27 +15,39 @@ with a headless frame-step loop that reproduces:
 
 Every frame runs through the port's kernels (the prepass, the fused march,
 the collect march, the compositors, the exact march and collect).  The
-frame protocol is the JAX package's under its ``"sync"`` overflow policy:
-the record-sorted segmented frame on a ray order from the previous frame's
-packed hints, a redo with escalated budgets when a segment overflows, the
-hint frame with its ``max_dense`` escalation loop when there is no order,
-and the exact renderer when even budget 128 overflows.  Under camera
-motion the order is rebuilt on the device from the hints max-dilated by
-the estimated silhouette sweep.
+frame protocol is the JAX package's, under its three overflow policies
+(``overflow_policy``): the record-sorted segmented frame on a ray order
+from the previous frame's packed hints, and, when a segment overflowed,
+
+  * ``"sync"``: a redo with escalated budgets before the frame returns;
+  * ``"async"``: the frame returns as it is, and the next frame reads the
+    flags and escalates (a moving frame may show a truncated band of up to
+    ``motion_overflow_tolerance`` of its rays);
+  * ``"device"``: the frame re-marches itself at budget 128 by a gated
+    launch of the march that reads the flags on the card, and the next
+    frame reads them to retune the budgets.
+
+Under the async and device policies the flags cross to the host in a copy
+issued right after the frame's march, into pinned memory, with an event
+that the next frame waits on, and nothing else.  The hint frame with its
+``max_dense`` escalation loop runs when there is no order, and the exact
+renderer when even budget 128 overflows.  Under camera motion the order is
+rebuilt on the device from the hints max-dilated by the estimated
+silhouette sweep, or, under the async policy with ``motion_mode``
+``"rehint"`` (the default), measured by the re-hint motion frame
+(``accel.render_frame_motion``).  ``use_turbo_map`` renders on the turbo
+leaf map where it is valid.
 
 Not ported, and refused with ``NotImplementedError`` rather than run
-another way: the ``"async"`` and ``"device"`` overflow policies and the
-re-hint motion frame (ROADMAP queue 1, items 4 and 8), ``foveation`` > 1,
-``use_turbo_map``, ``show_grid`` and ``meshes`` (items 8 and 9).  The JAX
-``use_dynamic_knobs`` (traced knobs that spare a recompile) means nothing
-without jit and is left out, as is ``use_pallas_composite``: every guided
-frame goes through ``guided.composite_frame``.  So are the JAX switches
-``use_fast_path``, ``use_prepass``, ``use_device_order`` and
-``use_guided_segments``, which nothing turns off: a binary tree always
-takes the leaf-map path, a frame without votes the prepass, ray orders
-are always built on the device, and the guided collect is segmented once
-budgets exist.  ``motion_mode`` is left out too: it only chooses how the
-unported async policy regains an order; the sync policy always dilates.
+another way: ``foveation`` > 1, ``show_grid`` and ``meshes`` (ROADMAP
+queue 1, item 9).  The JAX ``use_dynamic_knobs`` (traced knobs that spare
+a recompile) means nothing without jit and is left out, as is
+``use_pallas_composite``: every guided frame goes through
+``guided.composite_frame``.  So are the JAX switches ``use_fast_path``,
+``use_prepass``, ``use_device_order`` and ``use_guided_segments``, which
+nothing turns off: a binary tree always takes the leaf-map path, a frame
+without votes the prepass, ray orders are always built on the device, and
+the guided collect is segmented once budgets exist.
 """
 
 from __future__ import annotations
@@ -63,6 +75,42 @@ from .utils.tuning import device_tuning
 _log = logging.getLogger(__name__)
 
 OVERFLOW_POLICIES = ("sync", "async", "device")
+MOTION_MODES = ("rehint", "dilate")
+
+
+class _Deferred:
+    """A device tensor on its way to the host: a non-blocking copy into
+    pinned memory and the event after it.  :func:`_host_array` waits on
+    that event only, not on the frame's later work."""
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host = host
+        self.event = event
+
+
+def _to_host_later(tensors: dict) -> dict:
+    """Start the copies of one frame's flag ``tensors`` to the host, behind
+    one event; CPU tensors are kept as they are."""
+    if not any(t.device.type == "cuda" for t in tensors.values()):
+        return dict(tensors)
+    host = {}
+    for k, t in tensors.items():
+        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[k].copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return {k: _Deferred(h, event) for k, h in host.items()}
+
+
+def _host_array(x) -> np.ndarray:
+    """A numpy array from a deferred copy (waiting on its event), a tensor
+    or anything numpy takes."""
+    if isinstance(x, _Deferred):
+        x.event.synchronize()
+        return x.host.numpy()
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -110,14 +158,40 @@ class Viewer:
         self._leaf_map = None
         self._skip_table = None
         self._skip_thresh = None
-        # refused when set (see the module docstring)
+        # turbo: the max-empty-cube leaf map (drift within 1e-3), valid for
+        # sigma_thresh at or above the threshold it was built for
         self.use_turbo_map = False
+        self._leaf_map_turbo_thresh = None
+        # refused when set (see the module docstring)
         self.foveation = 1
         self.meshes = []
-        # "sync": check the segment flags before returning each frame and
-        # redo if stale, so every returned frame is exact.  The only
-        # policy ported; "async" and "device" raise.
+        # how the segmented frame meets stale budgets (module docstring):
+        # "sync" redoes the frame, "async" escalates on the next frame,
+        # "device" re-marches on the card and retunes on the next frame
         self.overflow_policy = "sync"
+        # the last frame's (segments, seg_overflow, fb_overflow, R, moved[,
+        # kind]), its flags on their way to the host
+        self._pending_ov = None
+        self._ov_frame = 0
+        self._clean_streak = 0
+        # async: the share of a moving frame's rays that may exceed their
+        # class budget without escalating
+        self.motion_overflow_tolerance = 1.0 / 512.0
+        # async: read the flags every this many frames; re-hint poses
+        # every motion_flag_interval frames at the least
+        self.overflow_check_interval = 1
+        self.motion_flag_interval = 4
+        # margin of the re-hint budgets settled from measured CDFs
+        self.motion_settled_margin = 0
+        # how async moved frames regain an order: "rehint" measures it
+        # (accel.render_frame_motion), "dilate" predicts it from the
+        # previous pose's dilated hints; sync and device always dilate
+        self.motion_mode = "rehint"
+        self._qperm = None
+        self._motion_cdf_dev = None
+        self._last_cdf = None
+        self._segments_motion = None
+        self._segments_motion_src = None
         self._ray_order = None
         self._hints_packed = None
         self._order_stale = False
@@ -233,20 +307,13 @@ class Viewer:
         if self.overflow_policy not in OVERFLOW_POLICIES:
             raise ValueError(f"overflow_policy {self.overflow_policy!r} not "
                              f"in {OVERFLOW_POLICIES}")
-        if self.overflow_policy != "sync":
-            raise NotImplementedError(
-                f"overflow_policy={self.overflow_policy!r} (the deferred "
-                f"flag check, device_fallback and the re-hint motion frame "
-                f"accel._motion_core) is not ported yet: ROADMAP queue 1, "
-                f"items 4 and 8")
+        if self.motion_mode not in MOTION_MODES:
+            raise ValueError(f"motion_mode {self.motion_mode!r} not in "
+                             f"{MOTION_MODES}")
         if int(self.foveation) > 1:
             raise NotImplementedError(
                 "foveation > 1 (_render_foveated) is not ported yet: "
                 "ROADMAP queue 1, item 9")
-        if self.use_turbo_map:
-            raise NotImplementedError(
-                "use_turbo_map (build_turbo_leaf_map) is not ported yet: "
-                "ROADMAP queue 1, item 8")
         if opt.show_grid or self.meshes:
             raise NotImplementedError(
                 "show_grid and meshes (_render_with_grid, utils/wireframe, "
@@ -356,12 +423,26 @@ class Viewer:
     # ------------------------------------------------------------------
     def _ensure_maps(self, need_votes: bool = False):
         """A valid leaf map and, unless this is a vote frame, the skip
-        table for the current ``sigma_thresh`` (``viewer.py:519-557``
-        without the turbo map).  Returns the skip table or None."""
+        table for the current ``sigma_thresh`` (``viewer.py:519-557``).
+        A turbo map is valid for a ``sigma_thresh`` at or above the one it
+        was built for and not for vote frames; it is rebuilt when the
+        threshold drops, on vote frames and when the switch goes off, and
+        the skip table with it.  Returns the skip table or None."""
         opt = self.options
+        turbo_thresh = self._leaf_map_turbo_thresh
+        if self._leaf_map is not None and turbo_thresh is not None and (
+                opt.sigma_thresh < turbo_thresh or need_votes
+                or not self.use_turbo_map):
+            self._leaf_map = None
         if self._leaf_map is None:
             with self.timer.time("leaf_map_build"):
-                self._leaf_map = accel.build_leaf_map(self.tree)
+                if self.use_turbo_map and not need_votes:
+                    self._leaf_map = accel.build_turbo_leaf_map(
+                        self.tree, sigma_thresh=opt.sigma_thresh)
+                    self._leaf_map_turbo_thresh = opt.sigma_thresh
+                else:
+                    self._leaf_map = accel.build_leaf_map(self.tree)
+                    self._leaf_map_turbo_thresh = None
             self._skip_table = None
         if not need_votes:
             thresh = opt.sigma_thresh
@@ -372,11 +453,15 @@ class Viewer:
         return None
 
     def _render_fast(self, need_votes: bool = False):
-        """Leaf-map frame under the sync policy (``viewer.py:560-795``);
+        """Leaf-map frame under the overflow policy (``viewer.py:560-795``);
         falls back to the exact renderer when even budget 128 overflows.
         Returns (img, res), res carrying the votes when asked, else None."""
         # whether this frame renders under a camera move
         frame_moved = bool(self._order_stale)
+        policy = self.overflow_policy
+        if policy != "sync":
+            # the previous frame's flags retune budgets and hints first
+            self._check_pending_overflow()
         skip_table = self._ensure_maps(need_votes)
         order = self._ray_order
         w, h = self.camera.width, self.camera.height
@@ -386,20 +471,30 @@ class Viewer:
         hints = self._hints_packed
         if hints is not None and hints.shape[0] != R:
             hints = self._hints_packed = None
+        if (self._order_stale and order is not None and hints is not None
+                and self.motion_mode == "rehint" and not need_votes
+                and policy == "async" and w % 2 == 0 and h % 2 == 0):
+            # camera moved, re-hint mode: measure this pose's record needs
+            # with a quarter-resolution count march (async only: sub-sample
+            # features may truncate within the tolerance band)
+            return self._render_motion_rehint(hints, skip_table)
         if self._order_stale and order is not None and hints is not None:
             # camera moved: rebuild the order on the device from the last
             # frame's hints, max-dilated by the estimated sweep; budgets
-            # follow the dilated CDF with one ladder step of headroom
+            # follow the dilated CDF, with one ladder step of headroom
+            # except under the async policy, whose tolerance absorbs the
+            # rays that outrun the window
             window = self._estimate_dilation()
             if window:
                 dh = accel.dilate_packed(hints, width=w, height=h,
                                          window=window)
                 order = self._ray_order = accel.order_from_packed_device(dh)
-                src = ("dil", window, True)
+                hroom = policy != "async"
+                src = ("dil", window, hroom)
                 if self._segments_src != src:
                     cdf = accel.hint_class_cdf_packed(dh)
                     self._segments = list(accel.segments_from_hint_cdf(
-                        cdf.cpu().numpy(), R, headroom=True))
+                        cdf.cpu().numpy(), R, headroom=hroom))
                     self._segments_src = src
             else:
                 order = self._ray_order = accel.order_from_packed_device(
@@ -416,27 +511,42 @@ class Viewer:
                 self._inv_host = order[1].cpu().numpy()
                 self._inv_src = order[1]
             self._frame_sorted = use_sorted
+            flags = {}
             out = accel.render_frame_fast_segmented(
                 self.tree, self._leaf_map, self.camera, self.options,
                 order=order, segments=tuple(segments),
                 chunk_size=self.fast_chunk_size, need_votes=need_votes,
                 skip_table=skip_table, return_hints="packed",
-                sorted_output=use_sorted)
-            ov = out[1].cpu().numpy()
-            if ov.any():
-                # stale budgets: escalate the overflowed segments and redo
-                # this frame as a hint frame (never the exact cliff)
-                self._segments = [
-                    (f, min(max(1, md * 2), 128)
-                     if ov[min(i, len(ov) - 1)] else md)
-                    for i, (f, md) in enumerate(segments)]
-                order = None
-            else:
+                sorted_output=use_sorted,
+                device_fallback=policy == "device",
+                on_flags=(None if policy == "sync"
+                          else lambda f: flags.update(_to_host_later(f))))
+            if policy != "sync":
+                # the flags are read at the top of the next frame: the
+                # device policy's frame is right already, the async one
+                # may show a truncated band until then
+                self._pending_ov = (list(segments), flags["seg_overflow"],
+                                    flags.get("fb_overflow"), R, frame_moved)
                 img = out[0]
                 if need_votes:
                     split_vote, sample_vote = out[2], out[3]
                 self._hints_packed = out[-1]
-                self._segments = segments
+            else:
+                ov = out[1].cpu().numpy()
+                if ov.any():
+                    # stale budgets: escalate the overflowed segments and
+                    # redo this frame as a hint frame (never the exact cliff)
+                    self._segments = [
+                        (f, min(max(1, md * 2), 128)
+                         if ov[min(i, len(ov) - 1)] else md)
+                        for i, (f, md) in enumerate(segments)]
+                    order = None
+                else:
+                    img = out[0]
+                    if need_votes:
+                        split_vote, sample_vote = out[2], out[3]
+                    self._hints_packed = out[-1]
+                    self._segments = segments
         if order is None:
             # no order yet (first frame at this resolution, or a redo):
             # one budget for the whole frame, escalated until it fits
@@ -461,9 +571,11 @@ class Viewer:
             self._ray_order = accel.order_from_packed_device(ph)
             self._hints_packed = ph
             # exact hints of a parked camera: CDF-matched budgets
-            cdf = accel.hint_class_cdf(nrec).cpu().numpy()
-            self._segments = list(accel.segments_from_hint_cdf(cdf, R))
+            self._last_cdf = accel.hint_class_cdf(nrec).cpu().numpy()
+            self._segments = list(accel.segments_from_hint_cdf(
+                self._last_cdf, R))
             self._segments_src = ("steady",)
+            self._segments_motion = None     # re-derived per episode
             self._order_back = np.asarray(
                 self.camera.transform, np.float32)[:3, :].copy()
             self._order_stale = False
@@ -477,6 +589,119 @@ class Viewer:
             return img, RenderResult(out=None, split_vote=split_vote,
                                      sample_vote=sample_vote, visited=None)
         return img, None
+
+    def _render_motion_rehint(self, hints, skip_table):
+        """One re-hint motion pose (``viewer.py:958-1002``): the quarter
+        order carried pose to pose (at an episode's start from the steady
+        hints), margin-1 budgets derived once per episode from the last
+        known CDF, and the flags and the measured CDF left for the deferred
+        check."""
+        w, h = self.camera.width, self.camera.height
+        R = w * h
+        if self._qperm is None or self._qperm.shape[0] * 4 != R:
+            self._qperm = accel.quarter_order_from_packed(hints, width=w)
+        segments = self._segments_motion
+        if segments is None or self._segments_motion_src != ("rehint", R):
+            cdf = self._last_cdf
+            if cdf is None:
+                cdf = accel.hint_class_cdf_packed(hints).cpu().numpy()
+            segments = list(accel.segments_from_hint_cdf(cdf, R, margin=1))
+            self._segments_motion = segments
+            self._segments_motion_src = ("rehint", R)
+        self._frame_sorted = False
+        flags = {}
+        img, _, order, _, qperm = accel.render_frame_motion(
+            self.tree, self._leaf_map, self.camera, self.options,
+            self._qperm, segments=tuple(segments),
+            chunk_size=self.fast_chunk_size, skip_table=skip_table,
+            hint_stride=2, on_flags=lambda f: flags.update(
+                _to_host_later(f)))
+        self._qperm = qperm
+        self._ray_order = order
+        self._motion_cdf_dev = flags["cdf"]
+        self._pending_ov = (list(segments), flags["seg_overflow"], None, R,
+                            True, "rehint")
+        self._order_stale = False
+        return img, None
+
+    def _check_pending_overflow(self):
+        """The deferred check (``viewer.py:1004-1127``): the previous
+        segmented frame's flags, read now, retune budgets and hints for
+        the frames to come.  Under the async policy a moving frame's band
+        of up to ``motion_overflow_tolerance`` of its rays is tolerated; a
+        parked frame's is not.  A re-hint pose re-derives its budgets from
+        its measured CDF; otherwise an overflow escalates the segments and
+        drops the order, whose hints were capped."""
+        pending = self._pending_ov
+        if pending is None:
+            return
+        kind = pending[5] if len(pending) > 5 else "std"
+        if self.overflow_policy == "async":
+            interval = int(self.overflow_check_interval)
+            if kind == "rehint":
+                interval = max(interval, int(self.motion_flag_interval))
+            self._ov_frame += 1
+            if self._ov_frame % max(1, interval):
+                return                    # keep the newest pending flags
+        self._pending_ov = None
+        segments, seg_ov, _, R, moved = pending[:5]
+        counts = _host_array(seg_ov)
+        tol = 0
+        if self.overflow_policy == "async" and moved:
+            tol = int(R * self.motion_overflow_tolerance)
+        ov = counts > tol
+        if kind == "rehint":
+            if self._motion_cdf_dev is None:
+                return
+            if ov.any():
+                # the order is measured every pose: only the budgets are
+                # re-derived, from the last pose's CDF
+                cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
+                self._segments_motion = list(accel.segments_from_hint_cdf(
+                    cdf, R, margin=1))
+                self._segments_motion_src = ("rehint", R)
+            elif self._segments_motion is not None:
+                # a clean check settles the budgets at the settled margin,
+                # when that is cheaper than the running tuple
+                cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
+                cand = list(accel.segments_from_hint_cdf(
+                    cdf, R, margin=int(self.motion_settled_margin)))
+
+                def mass(segs):
+                    return sum(f * md for f, md in segs)
+                if mass(cand) < mass(self._segments_motion):
+                    self._segments_motion = cand
+                    self._segments_motion_src = ("rehint", R)
+            return
+        if not ov.any():
+            # after a clean streak on a parked camera, budgets come back to
+            # the steady CDF of the latest exact hints; a tolerated band is
+            # not clean (its hints are capped)
+            if counts.sum() == 0:
+                self._clean_streak += 1
+            else:
+                self._clean_streak = 0
+            if (self._clean_streak >= 8 and not self._order_stale
+                    and self._hints_packed is not None
+                    and self._segments_src != ("steady",)):
+                self._clean_streak = 0
+                cdf = accel.hint_class_cdf_packed(self._hints_packed)
+                self._last_cdf = cdf.cpu().numpy()
+                self._segments = list(accel.segments_from_hint_cdf(
+                    self._last_cdf, R))
+                self._segments_src = ("steady",)
+                self._segments_motion = None
+            return
+        self._clean_streak = 0
+        self._segments = [
+            (f, min(max(1, md * 2), 128) if ov[min(i, len(ov) - 1)]
+             else md) for i, (f, md) in enumerate(segments)]
+        self._segments_src = ("esc",)
+        # the overflowed frame's hints are capped at the starved budgets:
+        # the next frame is a hint frame (and, if even budget 128
+        # overflows, the exact renderer)
+        self._ray_order = None
+        self._hints_packed = None
 
     def _estimate_dilation(self, attr: str = "_order_back"):
         """Per-axis hint-dilation windows (wy, wx) from the camera's

@@ -241,6 +241,29 @@ def test_cli_orbit_frames(tmp_path, extra):
                    op.replace(".png", f"_{f:04d}.png"))
 
 
+@pytest.mark.parametrize("extra", [["--turbo"], ["--motion-mode", "dilate"],
+                                   ["--turbo", "--motion-mode", "rehint"]])
+def test_cli_turbo_and_motion_mode(tmp_path, extra, monkeypatch):
+    """--turbo and --motion-mode render, frame by frame, the PNGs of the
+    JAX CLI (within one rgba8 step); --turbo builds the turbo map."""
+    from mega_nerf_viewer_tpu_torch.ops import accel as PA
+    built = []
+    orig = PA.build_turbo_leaf_map
+
+    def spy(*a, **kw):
+        built.append(kw.get("sigma_thresh"))
+        return orig(*a, **kw)
+    monkeypatch.setattr(PA, "build_turbo_leaf_map", spy)
+    oj, op = _cli_pair(tmp_path, 3, ["-w", "16", "--height", "12", "--fx",
+                                     "20", "--center=-1.5,0.1,1.4",
+                                     "--frames", "3", "--orbit", *extra],
+                       "m.png")
+    for f in range(3):
+        _close_png(oj.replace(".png", f"_{f:04d}.png"),
+                   op.replace(".png", f"_{f:04d}.png"))
+    assert bool(built) == ("--turbo" in extra)
+
+
 def test_cli_apng_depth_and_save_tree(tmp_path):
     """An APNG of a depth-mode orbit, and --save_tree, against JAX's CLI."""
     tree = J.sphere_tree(basis_dim=1, depth=3)

@@ -8,7 +8,10 @@ reduces the record buffer; both round each op alike); the compact
 compositor within 1e-6 (a running product along the ray against a
 cumprod and a masked sum); the padded compositor within 1e-6 (a product
 scan in tiles of 8 lanes and a butterfly sum against a cumprod and a
-masked sum).
+masked sum).  The march's gated launch is bit-equal to the ungated one
+when taken and writes nothing when closed; the frames of the device
+policy and of the re-hint motion frame run under sync debug mode
+"error".
 """
 
 import numpy as np
@@ -542,3 +545,177 @@ def test_viewer_parked_frame_matches_direct_frame(cuda):
         skip_table=v._skip_table)[0]
     assert torch.equal(img, direct)
     assert v.get_backend() == "CUDA"
+
+
+# ----------------------------------------------------------------------
+# the moving camera: the gated march, the turbo map, no host syncs
+# ----------------------------------------------------------------------
+def _march_args(cuda, depth=5, level=None, max_dense=16, turbo=False):
+    tree, lm, table, m = _scene(cuda, depth, level)
+    if turbo:
+        lm = P.build_turbo_leaf_map(tree, level=level)
+    t0, _ = kernels.skip_prepass(table, m.cen, m.d, m.invdir, m.tmin,
+                                 m.tmax, ~m.miss, m.step_size)
+    m = m._replace(tmin=t0)
+    return (tree, lm, m.cen, m.d, m.invdir, m.delta_scale, m.tmin, m.tmax,
+            m.miss, m.basis, m.step_size, m.sigma_thresh, m.stop_thresh,
+            max_dense, m.use_sh)
+
+
+@pytest.mark.parametrize("votes", [None, (5, 256)])
+def test_gated_march_closed_gate_writes_nothing(cuda, votes):
+    """Gated with every count 0: the buffers keep their sentinel bytes,
+    the overflow count is 0, and the launch counts as march_gated."""
+    args = _march_args(cuda)
+    R = args[3].shape[0]
+    into = (torch.full((R, 4), -7.0, device=cuda),
+            torch.full((R,), -7, dtype=torch.int32, device=cuda),
+            torch.full((R,), -7, dtype=torch.int32, device=cuda))
+    if votes is not None:
+        into += (torch.full((R, 3), -7.0, device=cuda),
+                 torch.full((R, 3), -7.0, device=cuda))
+    before = dict(kernels.LAUNCHES)
+    res = kernels.march(*args, votes=votes,
+                        gate=torch.zeros(5, dtype=torch.int32, device=cuda),
+                        into=into)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["march_gated"] == before["march_gated"] + 1
+    assert kernels.LAUNCHES["march"] == before["march"]
+    assert int(res[1]) == 0
+    for buf in into:
+        assert bool((buf == -7).all())
+
+
+@pytest.mark.parametrize("votes", [None, (5, 256)])
+@pytest.mark.parametrize("max_dense", [128, 2])
+def test_gated_march_open_gate_matches(cuda, votes, max_dense):
+    """Gated with a count not 0: bit-equal to the ungated launch, and
+    integers equal and rgba within 1e-6 of the plain version."""
+    args = _march_args(cuda, max_dense=max_dense)
+    R = args[3].shape[0]
+    ref = kernels.march(*args, votes=votes)
+    into = (torch.full((R, 4), -7.0, device=cuda),
+            torch.full((R,), -7, dtype=torch.int32, device=cuda),
+            torch.full((R,), -7, dtype=torch.int32, device=cuda))
+    if votes is not None:
+        into += (torch.full((R, 3), -7.0, device=cuda),
+                 torch.full((R, 3), -7.0, device=cuda))
+    gate = torch.tensor([0, 0, 3, 0], dtype=torch.int32, device=cuda)
+    res = kernels.march(*args, votes=votes, gate=gate, into=into)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(res[:1] + res[2:], into))
+    for a, b in zip(res, ref):
+        assert torch.equal(a, b)
+    plain = accel.render_rays_fast_reference(*args, votes=votes)
+    assert float((res[0] - plain[0]).abs().max()) <= 1e-6
+    assert int(res[1]) == int(plain[1])
+    for a, b in zip(res[2:], plain[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth,level", [(5, None), (7, 4)])
+def test_turbo_map_march_matches_plain(cuda, depth, level):
+    """Kernel A reads each cell's depth from the row's meta, so a turbo
+    map needs no change: integers equal, rgba within 1e-6, fewer steps."""
+    args = _march_args(cuda, depth, level, turbo=True)
+    ok = kernels.march(*args)
+    op = accel.render_rays_fast_reference(*args)
+    assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+    assert int(ok[1]) == int(op[1])
+    assert torch.equal(ok[2], op[2]) and torch.equal(ok[3], op[3])
+    plain = kernels.march(*_march_args(cuda, depth, level))
+    assert int(ok[2].sum()) <= int(plain[2].sum())
+
+
+def _motion_scene(dev):
+    tree = P.sphere_tree(basis_dim=4, depth=5, device=dev)
+    lm = P.build_leaf_map(tree)
+    table = P.build_skip_table(tree, P.RenderOptions().sigma_thresh)
+    cam = P.Camera(96, 80, 70.0)
+    cam.center = np.array([-1.3, 0.2, 1.2], np.float32)
+    cam._update()
+    opt = P.RenderOptions()
+    img, ov, steps, nrec, skips = P.render_frame_fast(
+        tree, lm, cam, opt, max_dense=64, chunk_size=512, return_nrec=True,
+        skip_table=table, return_skips=True)
+    ph = accel.pack_hints(steps, nrec, skips)
+    return tree, lm, table, cam, opt, ph
+
+
+def test_device_fallback_frame_has_no_host_sync(cuda):
+    """The device-fallback frame on starved budgets raises nothing under
+    sync debug mode "error", takes the fallback on the card and equals the
+    frame on budgets that fit."""
+    tree, lm, table, cam, opt, ph = _motion_scene(cuda)
+    order = accel.order_from_packed_device(ph)
+    fit = P.render_frame_fast_segmented(
+        tree, lm, cam, opt, order=order, segments=((1.0, 64),),
+        chunk_size=512, skip_table=table)[0]
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["march_gated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, seg_ov, fb = P.render_frame_fast_segmented(
+            tree, lm, cam, opt, order=order,
+            segments=((0.75, 0), (0.25, 1)), chunk_size=512,
+            skip_table=table, device_fallback=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["march_gated"] == before + 1
+    assert bool(seg_ov.any()) and int(fb) == 0
+    assert torch.equal(img, fit)
+
+
+def test_motion_frame_has_no_host_sync(cuda):
+    """render_frame_motion at stride 2 raises nothing under sync debug
+    mode "error" and returns a permutation and a quarter order."""
+    tree, lm, table, cam, opt, ph = _motion_scene(cuda)
+    qperm = P.quarter_order_from_packed(ph, width=96)
+    cam.begin_drag(0.0, 0.0, False, True)
+    cam.drag_update(-2.0, 0.0)
+    cam.end_drag()
+    cam._update()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = P.render_frame_motion(tree, lm, cam, opt, qperm,
+                                    chunk_size=512, skip_table=table,
+                                    hint_stride=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    img, ov, (perm, inv), cdf, q = out
+    assert bool(torch.isfinite(img).all())
+    assert torch.equal(perm[inv], torch.arange(96 * 80, device=cuda))
+    assert q.shape[0] * 4 == 96 * 80
+
+
+def _orbit(cam):
+    cam.begin_drag(0.0, 0.0, False, True)
+    cam.drag_update(-2.0, 0.0)
+    cam.end_drag()
+    cam._update()
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_motion_frame_on_card_matches_cpu(cuda, stride):
+    """The re-hint frame on the card against its plain version on the CPU:
+    hints, perm, inv, cdf, qperm and overflow counts equal, pixels within
+    1e-5."""
+    outs = []
+    for dev in ("cpu", cuda):
+        tree, lm, table, cam, opt, ph = _motion_scene(dev)
+        stale = (P.quarter_order_from_packed(ph, width=96) if stride == 2
+                 else accel.order_from_packed_device(ph)[0])
+        _orbit(cam)
+        img, ov, (perm, inv), cdf, q = P.render_frame_motion(
+            tree, lm, cam, opt, stale, chunk_size=512, skip_table=table,
+            hint_stride=stride)
+        outs.append([t.cpu() for t in (ph, img, ov, perm, inv, cdf)]
+                    + [None if q is None else q.cpu()])
+    (phc, imc, *ic), (phg, img_, *ig) = outs
+    assert torch.equal(phc, phg)
+    for a, b in zip(ic, ig):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert float((imc - img_).abs().max()) <= 1e-5

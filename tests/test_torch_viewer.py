@@ -1,14 +1,18 @@
 """The port's Viewer against the JAX package's Viewer, side by side on one
 camera script (the cases of ``tests/test_viewer.py`` that lie on the
-port's path: the fast frame under the sync overflow policy, motion with
-dilated hints, refinement and the prune, state and screenshots).  The
-guided cases are in ``test_torch_viewer_guided.py``.
+port's path: the fast frame under the three overflow policies, motion with
+dilated hints and with the re-hint frame, the turbo map, refinement and
+the prune, state and screenshots).  The guided cases are in
+``test_torch_viewer_guided.py``.
 
 Each step renders one frame on both viewers and compares:
   * frames within 1e-5 (``PIX_TOL``; the trees are the sphere at sigma 40
     or less, ROADMAP's CPU tolerance);
   * the ray order, the segment tuples, capacity, ``_visits_valid`` and
-    whether the prune fired: equal;
+    whether the prune fired: equal; on the motion cases also the segment
+    sources, the re-hint budgets, the last CDF, the quarter order and the
+    pending flags (:func:`check_motion_state`), so both viewers escalate
+    on the same frame;
   * after refinement, the trees: topology and sample counts equal, data
     within one f16 ulp.  The JAX viewer draws its uniform numbers from
     ``jax.random``; the port's ``refine.expand_voxels`` and
@@ -32,6 +36,8 @@ from mega_nerf_viewer_tpu.models import MegaNeRFModel as JModel
 from mega_nerf_viewer_tpu.n3tree import DataFormat as JDataFormat
 from mega_nerf_viewer_tpu.options import RenderOptions as JOptions
 from mega_nerf_viewer_tpu.utils.png import read_png as jread_png
+from mega_nerf_viewer_tpu_torch import viewer as VI
+from mega_nerf_viewer_tpu_torch.ops import accel as PA
 from mega_nerf_viewer_tpu_torch.ops import refine as PF
 from mega_nerf_viewer_tpu_torch.utils.png import read_png
 
@@ -469,32 +475,295 @@ def test_viewer_refuses_tree_on_other_device():
         P.Viewer(meta, device="cpu")
 
 
-@pytest.mark.parametrize("gate", ["async", "async_rehint", "device",
-                                  "foveation", "turbo", "grid", "meshes"])
+@pytest.mark.parametrize("gate", ["foveation", "grid", "meshes"])
 def test_unported_modes_raise(gate):
     """Each mode the port leaves out raises NotImplementedError naming its
     ROADMAP item; none renders another way."""
     pv = P.Viewer(P.sphere_tree(basis_dim=1, depth=2, device="cpu"),
                   camera=_cams(8, 8, 10.0)[1], device="cpu")
-    # the one overflow-policy gate names the deferred check, the device
-    # fallback and the re-hint motion frame
-    item = {"async": "items 4 and 8", "async_rehint": "_motion_core",
-            "device": "device_fallback", "foveation": "item 9",
-            "turbo": "item 8", "grid": "item 9", "meshes": "item 9"}[gate]
-    if gate.startswith("async"):
-        pv.overflow_policy = "async"
-    elif gate == "device":
-        pv.overflow_policy = "device"
-    elif gate == "foveation":
+    if gate == "foveation":
         pv.foveation = 2
-    elif gate == "turbo":
-        pv.use_turbo_map = True
     elif gate == "grid":
         pv.options = pv.options.replace(show_grid=True)
     else:
         pv.meshes = [object()]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 9"):
         pv.render()
     # no tree: the background frame needs none of them
     pv.clear()
     assert pv.render().shape == (8, 8, 4)
+
+
+# ----------------------------------------------------------------------
+# the moving camera: overflow policies, re-hint frames, the turbo map
+# (test_viewer.py:138-420, :747-773, :843-889)
+# ----------------------------------------------------------------------
+def check_motion_state(jv, pv):
+    """The motion episode's state equal on both viewers."""
+    assert getattr(jv, "_segments_src", None) == pv._segments_src
+    assert jv._segments_motion == pv._segments_motion
+    assert jv._segments_motion_src == pv._segments_motion_src
+    assert (jv._last_cdf is None) == (pv._last_cdf is None)
+    if pv._last_cdf is not None:
+        np.testing.assert_array_equal(pv._last_cdf, np.asarray(jv._last_cdf))
+    assert (jv._qperm is None) == (pv._qperm is None)
+    if pv._qperm is not None:
+        np.testing.assert_array_equal(_arr(pv._qperm), _arr(jv._qperm))
+    assert jv._clean_streak == pv._clean_streak
+    jp, pp = jv._pending_ov, pv._pending_ov
+    assert (jp is None) == (pp is None)
+    if pp is not None:
+        assert len(jp) == len(pp) and jp[0] == pp[0]
+        assert tuple(jp[3:]) == tuple(pp[3:])
+        np.testing.assert_array_equal(VI._host_array(pp[1]),
+                                      np.asarray(jp[1]))
+        if pp[2] is not None:
+            assert int(VI._host_array(pp[2])) == int(np.asarray(jp[2]))
+
+
+def mstep(jv, pv, tol=PIX_TOL):
+    a, b = step(jv, pv, tol)
+    check_motion_state(jv, pv)
+    return a, b
+
+
+def _exact(pv):
+    cam = pv.camera
+    img, _ = P.render_frame(pv.tree, cam.width, cam.height, cam.fx, cam.fy,
+                            cam.cx, cam.cy, cam.transform, pv.options)
+    return img.numpy()
+
+
+def test_turbo_map_invalidated_on_lower_sigma_thresh():
+    """test_viewer.py:138: a turbo map is kept while the threshold rises
+    and rebuilt when it drops."""
+    jv, pv = pair(sigma_thresh=0.5, split_batch_size=64)
+    for v in (jv, pv):
+        v.use_turbo_map = True
+    mstep(jv, pv)
+    lm1 = pv._leaf_map
+    assert pv._leaf_map_turbo_thresh == jv._leaf_map_turbo_thresh == 0.5
+    for v in (jv, pv):
+        v.options = v.options.replace(sigma_thresh=0.8)
+    mstep(jv, pv)
+    assert pv._leaf_map is lm1
+    for v in (jv, pv):
+        v.options = v.options.replace(sigma_thresh=0.01)
+    mstep(jv, pv)
+    assert pv._leaf_map is not lm1
+    assert pv._leaf_map_turbo_thresh == 0.01
+    # switched off: the plain map again, and the frame of a plain viewer
+    for v in (jv, pv):
+        v.use_turbo_map = False
+    a, b = mstep(jv, pv)
+    assert pv._leaf_map_turbo_thresh is None
+    _, plain = pair(sigma_thresh=0.01, split_batch_size=64)
+    np.testing.assert_array_equal(plain.render(), b)
+
+
+def _staleness_pair(policy):
+    jv, pv = pair(w=32, h=32, split_batch_size=64)
+    for v in (jv, pv):
+        v.fast_chunk_size = 256
+        v.overflow_policy = policy
+    return jv, pv
+
+
+def _starve(*viewers):
+    for v in viewers:
+        v._segments = [(0.75, 0), (0.25, 1)]
+        v._pending_ov = None
+
+
+def test_viewer_device_policy_keeps_frames_correct():
+    """test_viewer.py:210: a frame on starved budgets is still right (the
+    gated fallback march), and the next frame retunes the budgets from
+    the flags."""
+    jv, pv = _staleness_pair("device")
+    mstep(jv, pv)
+    assert pv._ray_order is not None
+    _starve(jv, pv)
+    a, b = mstep(jv, pv)
+    # against the exact renderer: chunk shapes differ (test_viewer.py's
+    # 2e-5); a truncated band would be ~1e-1
+    np.testing.assert_allclose(b, _exact(pv), atol=2e-5)
+    assert VI._host_array(pv._pending_ov[1]).any()
+    assert int(VI._host_array(pv._pending_ov[2])) == 0
+    mstep(jv, pv)                     # the deferred check fires here
+    assert pv._ray_order is not None
+    assert max(md for _, md in pv._segments) >= 2
+
+
+def test_viewer_async_policy_recovers_next_frame():
+    """test_viewer.py:232: a starved frame may be truncated, the next one
+    is exact again, and clean frames keep the tuned budgets."""
+    jv, pv = _staleness_pair("async")
+    mstep(jv, pv)
+    _starve(jv, pv)
+    mstep(jv, pv)                     # transient frame (may truncate)
+    assert pv._pending_ov is not None
+    a, b = mstep(jv, pv)              # the deferred check fired
+    assert pv._ray_order is not None
+    assert max(md for _, md in pv._segments) >= 2
+    np.testing.assert_allclose(b, _exact(pv), atol=2e-5)
+    segs = list(pv._segments)
+    mstep(jv, pv)
+    assert pv._segments == segs
+
+
+@pytest.mark.parametrize("policy,hroom", [("async", False), ("sync", True),
+                                          ("device", True)])
+def test_motion_headroom_follows_overflow_policy(policy, hroom):
+    """test_viewer.py:254: the dilated episode's budgets carry one ladder
+    step of headroom except under the async policy."""
+    jv, pv = pair(w=32, h=24, model=False)
+    for v in (jv, pv):
+        v.overflow_policy = policy
+        v.motion_mode = "dilate"
+    mstep(jv, pv)
+    assert pv._segments_src == ("steady",)
+    hints_before = pv._hints_packed
+    orbit(jv, pv, dx=-2.0)
+    mstep(jv, pv)
+    src = pv._segments_src
+    assert src[0] == "dil" and src[2] is hroom, (policy, src)
+    dh = PA.dilate_packed(hints_before, width=32, height=24, window=src[1])
+    cdf = PA.hint_class_cdf_packed(dh).numpy()
+    assert pv._segments == list(PA.segments_from_hint_cdf(
+        cdf, 32 * 24, headroom=hroom))
+
+
+def test_motion_rehint_exact_and_protocol(monkeypatch):
+    """test_viewer.py:291: async moved frames go through the re-hint
+    frame, carry the quarter order pose to pose and match the fresh
+    frame; the steady budgets stay; a parked frame takes the segmented
+    path on the last pose's order."""
+    jv, pv = pair(w=32, h=24, model=False)
+    for v in (jv, pv):
+        v.overflow_policy = "async"
+    assert pv.motion_mode == "rehint"
+    calls = [0]
+    orig = PA.render_frame_motion
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+    monkeypatch.setattr(PA, "render_frame_motion", spy)
+    mstep(jv, pv)
+    assert pv._segments_src == ("steady",)
+    for i in range(3):
+        orbit(jv, pv, dx=-2.0)
+        a, b = mstep(jv, pv)
+        assert calls[0] == i + 1
+        ref = PA.render_frame_fast(pv.tree, pv._leaf_map, pv.camera,
+                                   pv.options, max_dense=16, chunk_size=0)
+        assert float(np.abs(b - ref[0].numpy()).max()) <= 1e-6
+    assert pv._qperm.shape[0] * 4 == 32 * 24
+    assert pv._segments_motion_src == ("rehint", 32 * 24)
+    assert pv._segments_src == ("steady",)
+    a, b = mstep(jv, pv)
+    assert calls[0] == 3
+    assert np.isfinite(b).all()
+
+
+def test_motion_rehint_escalates_like_jax():
+    """Re-hint poses on starved budgets: the flags read every
+    motion_flag_interval frames re-derive the budgets from the measured
+    CDF on the same frame on both viewers."""
+    starved = [(0.9375, 0), (0.0625, 1)]
+    jv, pv = pair(w=32, h=24, model=False)
+    for v in (jv, pv):
+        v.overflow_policy = "async"
+        v.motion_flag_interval = 2
+    mstep(jv, pv)
+    orbit(jv, pv, dx=-3.0)
+    mstep(jv, pv)
+    for v in (jv, pv):
+        v._segments_motion = list(starved)
+    for _ in range(3):
+        orbit(jv, pv, dx=-3.0)
+        mstep(jv, pv)
+    assert pv._segments_motion != starved
+    mstep(jv, pv)
+
+
+def test_async_parked_truncation_escalates():
+    """test_viewer.py:747: a parked frame's band escalates at once; a
+    moving frame's band within the tolerance keeps the budgets and resets
+    the clean streak."""
+    jv, pv = pair(w=32, h=24, model=False)
+    for v in (jv, pv):
+        v.overflow_policy = "async"
+        v.overflow_check_interval = 1
+    mstep(jv, pv)
+    R = 32 * 24
+    segs = [(0.5, 0), (0.5, 8)]
+    for moved in (False, True):
+        for v in (jv, pv):
+            v._segments = list(segs)
+            v._clean_streak = 5
+            v._pending_ov = (list(segs), np.array([1, 0]),
+                             np.asarray(False), R, moved)
+            v._check_pending_overflow()
+        check_state(jv, pv)
+        check_motion_state(jv, pv)
+        if moved:
+            assert [md for _, md in pv._segments] == [0, 8]
+            assert pv._clean_streak == 0
+        else:
+            assert pv._ray_order is None
+            assert pv._segments[0][1] == 1
+            mstep(jv, pv)
+
+
+def test_guided_with_turbo_map_close_to_exact():
+    """test_viewer.py:843: the turbo map flows into the guided collect;
+    the frame equals JAX's and stays within JAX's 5e-3 of the plain map's."""
+    opts = dict(use_guided_sampling=True, max_guided_samples=8,
+                split_batch_size=16)
+    jv, pv = pair(**opts)
+    for v in (jv, pv):
+        v.use_turbo_map = True
+    a, b = mstep(jv, pv)
+    assert pv._leaf_map_turbo_thresh is not None
+    _, plain = pair(**opts)
+    np.testing.assert_allclose(b, plain.render(), atol=5e-3)
+
+
+@pytest.mark.parametrize("policy,turbo,guided", [
+    ("sync", False, False), ("async", True, False), ("device", False, False),
+    ("async", False, True), ("device", True, False)])
+def test_viewer_mode_matrix_under_motion(policy, turbo, guided):
+    """test_viewer.py:859 without foveation: each combination through a
+    short orbit, then parked frames: the async policy may show one
+    truncated parked frame and escalates on the next, so after three
+    parked frames two more repeat, and (voxel frames) equal the fresh
+    frame of the pose within 1e-6."""
+    opts = dict(split_batch_size=16)
+    if guided:
+        opts.update(use_guided_sampling=True, max_guided_samples=8)
+    jv, pv = pair(w=32, h=24, **opts)
+    for v in (jv, pv):
+        v.overflow_policy = policy
+        v.use_turbo_map = turbo
+        v.fast_chunk_size = 128
+    for _ in range(3):
+        orbit(jv, pv, dx=2.0)
+        mstep(jv, pv)
+    for _ in range(3):
+        mstep(jv, pv)
+    a, b = mstep(jv, pv)
+    a2, b2 = mstep(jv, pv)
+    np.testing.assert_array_equal(b, b2)
+    if not guided:
+        ref = PA.render_frame_fast(pv.tree, pv._leaf_map, pv.camera,
+                                   pv.options, max_dense=128, chunk_size=0)
+        assert float(np.abs(b - ref[0].numpy()).max()) <= 1e-6
+
+
+def test_unknown_motion_mode_refused():
+    pv = P.Viewer(P.sphere_tree(basis_dim=1, depth=2, device="cpu"),
+                  camera=_cams(8, 8, 10.0)[1], device="cpu")
+    pv.motion_mode = "predict"
+    with pytest.raises(ValueError, match="motion_mode"):
+        pv.render()
