@@ -49,7 +49,18 @@ shapes of the main paths, and drives both paths of the port:
   frames) and chunk-exact budgets (within 1e-6 of phase 4's frame); the
   device-fallback frame and the stride-2 motion frame run under sync
   debug mode "error"; then kernel A's gated launch, closed and taken,
-  against its plain version.
+  against its plain version;
+* the rest of the user-facing path (phase 20): foveated frames at f = 4
+  and 2 against f = 1 on ``benchmarks/foveated1080p.py``'s protocol (the
+  centre window against the f = 1 frame, the periphery block-constant),
+  a foveated guided stop (kernels C and D on the stop only) and a moved
+  guided pose gated off, the grid frame (kernel E with the overlay depth
+  as each ray's ``tmax``; the cached overlay, an orbit, a cube mesh, and a
+  96x54 grid frame against the CPU), ``WebViewer(port=0)`` in-process (the
+  served 1080p frame against ``render_rgba8``, 12 events read back, grid
+  and foveation edits) and ``cli --serve 0`` in a subprocess, a
+  ``trace()`` holding the kernels' names, and the native loader built from
+  ``native/nerfview_native.cpp`` and held against numpy.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -446,14 +457,17 @@ def main():
     viewer_guided_launches = viewer_guided_phase(P, kernels, dev, report)
     probe_phase(kernels, dev, report)
     small_viewer(P, dev)
+    torch.cuda.empty_cache()
+    rest_launches = rest_phase(P, kernels)
 
-    # launches: each path's own run (phases 4, 8, 12, 15, 16 and 19),
+    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19 and 20),
     # summed over the paths for the kernels that several paths run; kernel
     # H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
-            viewer_launches, viewer_guided_launches, motion_launches))
+            viewer_launches, viewer_guided_launches, motion_launches,
+            rest_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -2244,6 +2258,491 @@ def small_viewer(P, dev):
                       f"{err}")
             exact_data = exact_data and ulp == 0
         check(cpu[key][-1][1] > cpu[key][0][1], f"no split happened ({key})")
+
+
+# -- phase 20: the rest of the user-facing path ----------------------
+FOV_PROTOCOL = dict(steady_reps=10, warm_poses=3, poses=20, deg=3.0)
+
+
+def fov_viewer(P, tree, fov):
+    """``benchmarks/foveated1080p.py``'s Viewer at the card's chunk: the
+    async policy, flags read every 8 frames."""
+    v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL))
+    v.foveation = fov
+    v.overflow_policy = "async"
+    v.overflow_check_interval = 8
+    return v
+
+
+def fov_window(f, frac=0.5):
+    """(rows, cols) slices of the foveated centre window at 1080p."""
+    q = 2 * f
+    w1 = max(q, int(WIDTH * frac) // q * q)
+    h1 = max(q, int(HEIGHT * frac) // q * q)
+    x0, y0 = (WIDTH - w1) // 2, (HEIGHT - h1) // 2
+    return slice(y0, y0 + h1), slice(x0, x0 + w1)
+
+
+def fov_run(v):
+    """foveated1080p.py's protocol: two warm frames and ``steady_reps``
+    parked frames, then ``warm_poses`` orbit poses and ``poses`` timed
+    ones at ``deg`` degrees; host clock, the card synchronized once per
+    timed run.  Returns (parked ms/frame, the parked frame, pose ms, the
+    poses' frames all finite)."""
+    pr = FOV_PROTOCOL
+    v.render(fetch=False)
+    v.render(fetch=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(pr["steady_reps"]):
+        img = v.render(fetch=False)
+    torch.cuda.synchronize()
+    ms_parked = (time.perf_counter() - t) * 1e3 / pr["steady_reps"]
+    parked = img.clone()
+    for _ in range(pr["warm_poses"]):
+        motion_step(v.camera, pr["deg"])
+        v.render(fetch=False)
+    finite = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(pr["poses"]):
+        motion_step(v.camera, pr["deg"])
+        finite.append(torch.isfinite(v.render(fetch=False)).all())
+    torch.cuda.synchronize()
+    ms_pose = (time.perf_counter() - t) * 1e3 / pr["poses"]
+    return ms_parked, parked, ms_pose, bool(torch.stack(finite).all())
+
+
+def read_launches(kernels, names, what):
+    """The counts since the last reset; fails unless each of ``names``
+    launched."""
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    missing = [n for n in names if launches[n] == 0]
+    check(not missing, f"{what}: {missing} never launched: {launches}")
+    return launches
+
+
+def add_launches(total, run):
+    for k, n in run.items():
+        total[k] = total.get(k, 0) + n
+
+
+def cube_mesh(mesh_mod, center, half, color=(0.9, 0.2, 0.1)):
+    """A cube's 12 triangles around ``center``, one colour."""
+    c = np.asarray(center, np.float64)
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], np.float64) * half + c
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    verts = []
+    for q in quads:
+        n = np.cross(corners[q[1]] - corners[q[0]],
+                     corners[q[2]] - corners[q[0]])
+        n = n / np.linalg.norm(n)
+        for tri in ((q[0], q[1], q[2]), (q[0], q[2], q[3])):
+            for i in tri:
+                verts.append(np.concatenate([corners[i], color, n]))
+    return mesh_mod.Mesh(vert=np.asarray(verts, np.float32), face_size=3)
+
+
+def foveation_path(P, kernels, tree):
+    """Foveated frames at f = 4 and 2 against f = 1 (foveated1080p.py).
+    Returns the launch counts of the foveated runs."""
+    base = uncounted(kernels, lambda: fov_run(fov_viewer(P, tree, 1)))
+    full = base[1]
+    log(f"foveation f=1: parked {base[0]:.3f} ms/frame, 3-degree orbit "
+        f"{base[2]:.3f} ms/pose ({FOV_PROTOCOL})")
+    check(base[3], "non-finite f=1 motion frames")
+    kernels.reset_launch_counts()
+    rows = {}
+    for f in (4, 2):
+        v = fov_viewer(P, tree, f)
+        ms_parked, img, ms_pose, finite = fov_run(v)
+        check(v._fov_sub is not None, f"f={f}: the foveated route not taken")
+        ys, xs = fov_window(f)
+        err = float((img[ys, xs] - full[ys, xs]).abs().max())
+        top = img[:ys.start // f * f]
+        blk = top.reshape(top.shape[0] // f, f, WIDTH // f, f, 4)
+        blocky = bool((blk == blk[:, :1, :, :1]).all())
+        rays = sum(s.camera.width * s.camera.height for s in v._fov_sub)
+        log(f"foveation f={f}: {rays} rays ({100 * rays / (WIDTH * HEIGHT):.1f}"
+            f"% of the frame; subs {[(s.camera.width, s.camera.height, s.fast_chunk_size) for s in v._fov_sub]}); "
+            f"parked {ms_parked:.3f} ms/frame ({ms_parked / base[0]:.2f}x "
+            f"f=1), orbit {ms_pose:.3f} ms/pose ({ms_pose / base[2]:.2f}x "
+            f"f=1); centre window against the parked f=1 frame max abs diff "
+            f"{err:.3e}; periphery {f}x{f} block-constant {blocky}")
+        check(err <= 1e-4, f"f={f}: the centre window differs from the f=1 "
+              f"frame by {err}")
+        check(blocky, f"f={f}: the periphery is not block-constant")
+        check(finite, f"f={f}: non-finite motion frames")
+        rows[f] = (ms_parked, ms_pose)
+        profile_frames(lambda: v.render(fetch=False), ms_parked,
+                       what=f"f={f} parked frame")
+        del v
+    return read_launches(kernels, ("skip_prepass", "march"), "foveation")
+
+
+def foveated_guided_path(P, kernels):
+    """A guided stop at f = 2 on phase 16's guided scene: kernels C and D
+    on the stop and not on the reuse frames, the centre window against the
+    Viewer's exact guided frame, a moved pose gated off, and the stop when
+    the camera settles.  Returns the launch counts of the foveated frames
+    (the gated pose's are not counted)."""
+    tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                        max_capacity=2 * SHELL_CHUNKS)
+    model = P.MegaNeRFModel.synthetic(data_dim=int(tree.data_dim), seed=0,
+                                      **GUIDED_MODEL)
+    opt = P.RenderOptions(max_guided_samples=GUIDED_S, need_viewdir=True,
+                          use_guided_sampling=True)
+
+    def viewer(f):
+        v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL),
+                     options=opt, model=model)
+        v.foveation = f
+        return v
+
+    ref = uncounted(kernels, lambda: viewer(1).render(fetch=False))
+    v = viewer(2)
+    v.render(fetch=False)     # the first pose counts as moved: not foveated
+    check(v._fov_sub is None and v._fov_motion_gated,
+          "the first guided pose was foveated")
+    kernels.reset_launch_counts()
+    img, stop_ms = timed(lambda: v.render(fetch=False))
+    stop = read_launches(kernels, ("collect", "compact_composite"),
+                         "the foveated guided stop")
+    check(v._fov_sub is not None, "the guided stop was not foveated")
+    reuse = []
+    for _ in range(3):
+        img2, ms = timed(lambda: v.render(fetch=False))
+        reuse.append(round(ms, 3))
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES == stop, f"a reuse frame launched a kernel: "
+          f"{kernels.LAUNCHES} after {stop}")
+    check(torch.equal(img, img2), "a reuse frame differs from the stop")
+    ys, xs = fov_window(2)
+    err = float((img[ys, xs] - ref[ys, xs]).abs().max())
+    check(err <= 1e-4, f"the guided centre window differs from the exact "
+          f"guided frame by {err}")
+    orbit_step(v.camera, 12)
+    moved, moved_ms = uncounted(kernels, lambda: timed(
+        lambda: v.render(fetch=False)))
+    check(v._fov_motion_gated and v._fov_subs_stale,
+          "the moved guided pose was not gated off")
+    check(bool(torch.isfinite(moved).all()), "non-finite moved guided frame")
+    # the camera settles: the second stop of the subs, on their orders
+    img, stop2_ms = timed(lambda: v.render(fetch=False))
+    check(v._fov_sub is not None and not v._fov_subs_stale,
+          "the settled guided pose was not foveated")
+    check(kernels.LAUNCHES["collect"] > stop["collect"],
+          "the settled stop did not collect")
+    rv = viewer(1)
+    orbit_step(rv.camera, 12)
+    ref = uncounted(kernels, lambda: rv.render(fetch=False))
+    err2 = float((img[ys, xs] - ref[ys, xs]).abs().max())
+    check(err2 <= 1e-4, f"the settled centre window differs from the exact "
+          f"guided frame by {err2}")
+    log(f"foveated guided stop (f=2): {stop_ms:.3f} ms (the subs' first, "
+        f"with no ray order), launches "
+        f"{ {k: n for k, n in stop.items() if n} }; reuse frames {reuse} ms "
+        f"with no launch; centre window against the exact guided frame max "
+        f"abs diff {err:.3e}; a moved pose gated off, {moved_ms:.3f} ms; the "
+        f"settled stop (the subs' second) {stop2_ms:.3f} ms, centre window "
+        f"max abs diff {err2:.3e}")
+    return read_launches(kernels, ("collect", "compact_composite"),
+                         "the foveated guided stops")
+
+
+def grid_path(P, kernels, tree):
+    """The grid frame at the default grid_max_depth, the cached overlay, a
+    3-pose orbit and a cube mesh.  Returns the launch counts."""
+    from mega_nerf_viewer_tpu_torch.utils import mesh as M
+    from mega_nerf_viewer_tpu_torch.utils import wireframe as W
+
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    depth = P.RenderOptions().grid_max_depth
+    t = time.perf_counter()
+    boxes = tree.gen_wireframe(depth)
+    walk_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    _, line_depth = W.rasterize_boxes(boxes, cam)
+    raster_ms = (time.perf_counter() - t) * 1e3
+    v = P.Viewer(tree, camera=cam)
+    v.options = v.options.replace(show_grid=True)
+    kernels.reset_launch_counts()
+    first, first_ms = timed(lambda: v.render(fetch=False))
+    check(kernels.LAUNCHES["exact_march"] > 0,
+          "the grid frame did not run kernel E")
+    cache = v._grid_cache
+    img, parked_ms = timed(lambda: v.render(fetch=False))
+    check(v._grid_cache is cache and len(v.timer.records["gen_wire"]) == 1,
+          "the parked grid frame drew the overlay again")
+    check(torch.equal(img, first), "the parked grid frame changed")
+    lines = int((line_depth < 1e9).sum())
+    check(lines > WIDTH * HEIGHT // 1000 and bool(torch.isfinite(img).all()),
+          f"the grid frame: {lines} line pixels")
+    poses = []
+    for _ in range(3):
+        motion_step(cam, 3.0)
+        img, ms = timed(lambda: v.render(fetch=False))
+        check(bool(torch.isfinite(img).all()), "non-finite grid pose")
+        poses.append(round(ms, 3))
+    # a cube of 12 triangles in front of the camera, with the grid
+    before = img
+    v.meshes.append(cube_mesh(M, cam.center - 0.6 * cam.v_back, 0.05))
+    img, mesh_ms = timed(lambda: v.render(fetch=False))
+    changed = int(((img - before).abs() > 1e-3).any(-1).sum())
+    check(changed > WIDTH * HEIGHT // 1000,
+          f"the cube changed only {changed} pixels")
+    gen_ms = v.timer.records["gen_wire"]
+    log(f"grid frame (grid_max_depth {depth}): {len(boxes)} boxes, "
+        f"{lines} line pixels; host gen_wire {[round(1e3 * x, 1) for x in gen_ms]} "
+        f"ms (the walk {walk_ms:.1f} ms, the line raster {raster_ms:.1f} ms); "
+        f"first frame {first_ms:.3f} ms, parked {parked_ms:.3f} ms (overlay "
+        f"cached), 3-degree orbit poses {poses} ms; the cube mesh "
+        f"{mesh_ms:.3f} ms, {changed} pixels changed")
+    launches = read_launches(kernels, ("exact_march",), "the grid frame")
+    # a visit-tracked grid frame: kernel E with marks
+    _, res = uncounted(kernels, lambda: v._render_with_grid(True))
+    check(int(res.visited.sum()) > 1, "the tracked grid frame marked nothing")
+    # 96x54 on the card against the plain path on the CPU
+    small = P.shell_tree(depth=6, basis_dim=9, sigma_inside=400.0,
+                         device="cpu")
+    outs = []
+    for t in (small, P.tree_from_numpy(
+            **{k: getattr(small, k).numpy() for k in
+               ("data", "child", "parent", "sample_counts", "scale",
+                "offset")},
+            capacity=small.capacity, data_format=small.data_format)):
+        sv = P.Viewer(t, camera=camera(P.Camera, 96, 54, FOCAL * 96 / WIDTH),
+                      device=t.device)
+        sv.options = sv.options.replace(show_grid=True)
+        sv.meshes.append(cube_mesh(M, sv.camera.center
+                                   - 0.6 * sv.camera.v_back, 0.05))
+        outs.append(uncounted(kernels, lambda: sv.render(fetch=False)).cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    log(f"96x54 grid and mesh frame, card vs CPU plain path: max abs diff "
+        f"{err:.3e}")
+    check(err <= 1e-6, f"card and CPU grid frames differ by {err}")
+    return launches
+
+
+def web_path(P, kernels, tree):
+    """WebViewer(port=0) in this process over a 1080p Viewer, then
+    ``cli --serve 0`` in a subprocess.  Returns the launch counts of the
+    served frames."""
+    import urllib.request
+    from mega_nerf_viewer_tpu_torch.web import WebViewer
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def raw(base, after):
+        status, hdrs, body = get(f"{base}/frame.bin?after={after}")
+        check(status == 200, f"/frame.bin answered {status}")
+        check(len(body) == WIDTH * HEIGHT * 4, f"/frame.bin gave "
+              f"{len(body)} bytes")
+        return int(hdrs["X-Gen"]), np.frombuffer(body, np.uint8).reshape(
+            HEIGHT, WIDTH, 4)
+
+    def state(base):
+        return json.loads(get(base + "/state")[2])
+
+    ref = uncounted(kernels, lambda: P.Viewer(
+        tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL)).render_rgba8())
+    kernels.reset_launch_counts()
+    wv = WebViewer(P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT,
+                                                FOCAL)), port=0)
+    base = f"http://127.0.0.1:{wv.start()}"
+    try:
+        gen, img = raw(base, -1)
+        diff = int(np.abs(img.astype(np.int16) - ref.astype(np.int16)).max())
+        check(diff <= 1, f"the served frame is {diff} levels off render_rgba8")
+        events = []
+        for i in range(12):
+            if i % 2:
+                x = 960.0 + 40.0 * i
+                events.append([
+                    {"t": "mouse", "button": "right", "pressed": True,
+                     "x": 960.0, "y": 540.0},
+                    {"t": "cursor", "x": x, "y": 540.0},
+                    {"t": "mouse", "button": "right", "pressed": False,
+                     "x": x, "y": 540.0}])
+            else:
+                events.append({"t": "key", "key": "WASD"[i // 2 % 4]})
+        lat = []
+        for ev in events:
+            c0 = state(base)["camera"]["center"]
+            t = time.perf_counter()
+            res = post(base + "/event", ev)
+            gen2, img = raw(base, gen)
+            lat.append((time.perf_counter() - t) * 1e3)
+            check(res["applied"] and not res["error"], f"event {ev}: {res}")
+            s = state(base)
+            check(gen2 > gen and s["gen"] >= gen2 and s["camera"]["center"]
+                  != c0, f"event {ev} not read back")
+            gen = gen2
+        res = post(base + "/event", {"t": "options", "show_grid": True})
+        gen2, grid = raw(base, gen)
+        check(res["applied"] and not res["error"] and gen2 > gen
+              and state(base)["options"]["show_grid"], f"grid edit: {res}")
+        # the grid frame is not foveated: the grid goes off in the same post
+        res = post(base + "/event", [{"t": "options", "show_grid": False},
+                                     {"t": "viewer", "foveation": 2}])
+        check(res["applied"] and not res["error"], f"foveation edit {res}")
+        gen3, fov = raw(base, gen2)
+        check(state(base)["viewer"]["foveation"] == 2 and gen3 > gen2
+              and fov[..., 3].max() > 0, "the foveation edit did not render")
+        check(wv.viewer._fov_sub is not None, "the served frame not foveated")
+        log(f"browser viewer: first /frame.bin {WIDTH}x{HEIGHT}x4 bytes, "
+            f"within {diff} rgba8 level of render_rgba8; 12 key and drag "
+            f"events read back, event to new frame median "
+            f"{sorted(lat)[6]:.1f} ms (all {[round(x, 1) for x in lat]}); "
+            f"show_grid and foveation 2 edits rendered")
+    finally:
+        wv.stop()
+    launches = read_launches(kernels, ("skip_prepass", "march",
+                                       "exact_march"), "the browser viewer")
+    # cli --serve 0 in a subprocess
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "small.npz")
+        P.shell_tree(depth=6, basis_dim=9, sigma_inside=400.0,
+                     device="cpu").save_npz(path)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mega_nerf_viewer_tpu_torch.cli", path,
+             "-w", str(WIDTH), "--height", str(HEIGHT), "--fx", str(FOCAL),
+             "--center=" + ",".join(map(str, CENTER)), "--serve", "0"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            t = time.perf_counter()
+            line = ""
+            while "Serving" not in line:
+                line = proc.stdout.readline()
+                check(line or proc.poll() is None, "cli --serve exited")
+                check(time.perf_counter() - t < 120, "cli --serve: no port")
+            url = line.split()[4].rstrip("/")
+            get(url + "/frame?after=-1")          # the first frame
+            s = state(url)
+            check(s["backend"] == "CUDA" and s["camera"]["width"] == WIDTH,
+                  f"cli --serve state {s}")
+            log(f"cli --serve 0: bound {url}, /state answered after "
+                f"{time.perf_counter() - t:.1f} s")
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+    return launches
+
+
+def profiling_path(P, kernels, tree):
+    """trace() around 3 Viewer frames: the trace holds the kernels' names
+    and the annotate() name.  Returns the launch counts of the frames."""
+    from mega_nerf_viewer_tpu_torch.utils.profiling import annotate, trace
+    v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL))
+    kernels.reset_launch_counts()
+    v.render(fetch=False)
+    v.render(fetch=False)
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        with trace(td):
+            for _ in range(3):
+                with annotate("chip_smoke_frame"):
+                    v.render(fetch=False)
+        trace_s = time.perf_counter() - t
+        path = os.path.join(td, os.listdir(td)[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kern = sorted(n for n in names if n.split("(")[0].endswith(
+        ("march_kernel", "skip_prepass_kernel")))
+    check(any("march_kernel" in n for n in kern)
+          and any("skip_prepass_kernel" in n for n in kern),
+          f"the trace lacks the kernels: {sorted(names)[:40]}")
+    check("chip_smoke_frame" in names, "the trace lacks the annotation")
+    log(f"profiling: trace() of 3 frames in {trace_s:.2f} s, {size} bytes, "
+        f"holds {kern} and 'chip_smoke_frame'")
+    return read_launches(kernels, ("skip_prepass", "march"), "profiling")
+
+
+def native_path(P, tree):
+    """The native loader built from native/nerfview_native.cpp and loaded;
+    load_npz of the saved 1080p scene, vq_decode and argsort_counts equal
+    numpy."""
+    from mega_nerf_viewer_tpu_torch import native
+    from mega_nerf_viewer_tpu_torch.n3tree import tree as T
+    t = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t
+    check(ok, f"the native library did not build or load: "
+          f"{native.build_error()}")
+    rng = np.random.RandomState(0)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "shell.npz")
+        tree.save_npz(path)
+        size = os.path.getsize(path)
+        ms_native = median3(lambda: native.load_npz(path))[1]
+        ms_numpy = median3(lambda: dict(np.load(path)))[1]
+        got, want = native.load_npz(path), np.load(path)
+        for k in want.files:
+            if want[k].dtype.kind == "U":
+                check(str(got[k]) == str(want[k]), f"load_npz {k} differs")
+            else:
+                check(np.array_equal(got[k], want[k]),
+                      f"load_npz {k} differs from numpy")
+        opened = P.N3Tree.open(path)
+        check(torch.equal(opened.data[:tree.capacity],
+                          tree.data[:tree.capacity]), "N3Tree.open differs")
+    qm = rng.randint(0, 65536, (2, 4096, 8)).astype(np.uint16)
+    qc = rng.randn(2, 65536, 3).astype(np.float16)
+    sg = rng.rand(4096, 8).astype(np.float16)
+    rt = rng.randn(1, 4096, 8).astype(np.float16)
+    npz = dict(quant_colors=qc, quant_map=qm, sigma=sg, data_retained=rt)
+    for bug in (True, False):
+        a = native.vq_decode(qm, qc, rt, sg, 10, bug_compat=bug)
+        avail = native.available
+        native.available = lambda: False
+        try:
+            b = T._decode_vq(npz, 10, 8, bug)
+        finally:
+            native.available = avail
+        check(np.array_equal(a, b), "vq_decode differs from numpy")
+    keys = rng.randint(0, 1 << 16, 2_000_000).astype(np.int32)
+    perm, inv = native.argsort_counts(keys)
+    want = np.argsort(keys, kind="stable")
+    check(np.array_equal(perm, want)
+          and np.array_equal(inv, np.argsort(want, kind="stable")),
+          "argsort_counts differs from numpy")
+    log(f"native: {native.library_path().name} built and loaded in "
+        f"{build_s:.1f} s; load_npz of the saved 1080p shell ({size} bytes) "
+        f"{ms_native:.1f} ms against np.load {ms_numpy:.1f} ms, arrays "
+        f"equal; vq_decode and argsort_counts (2M keys) equal numpy")
+
+
+def rest_phase(P, kernels):
+    """Phase 20: the rest of the user-facing path at 1080p on the voxel
+    scene (foveation, the grid and mesh overlays, the browser viewer and
+    cli --serve, profiling, the native loader).  Each path's launches are
+    counted from 0 and read after it; returns their sum."""
+    tree = P.shell_tree(depth=8, basis_dim=9, sigma_inside=400.0)
+    total = {}
+    t0 = time.perf_counter()
+    add_launches(total, foveation_path(P, kernels, tree))
+    add_launches(total, foveated_guided_path(P, kernels))
+    torch.cuda.empty_cache()
+    add_launches(total, grid_path(P, kernels, tree))
+    add_launches(total, web_path(P, kernels, tree))
+    add_launches(total, profiling_path(P, kernels, tree))
+    native_path(P, tree)
+    log(f"phase 20 in {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
 
 
 if __name__ == "__main__":

@@ -19,15 +19,23 @@ user-facing path: the :class:`Viewer` session (``viewer.py``), the headless
 row-gather probe (``probes/gather_probe.py``).  The fifth is the camera in
 motion: the Viewer's async and device overflow policies (the device
 fallback march is a gated launch of the fused march), the re-hint motion
-frame, the turbo leaf map and chunk-exact segment budgets.  Entry points run
-on the CUDA card unless they are given ``device="cpu"``, where the
-kernels' plain PyTorch versions run instead.
+frame, the turbo leaf map and chunk-exact segment budgets.  The sixth is the
+rest of the user-facing path: the Viewer's approximate foveated mode, the
+octree wireframe and mesh overlays (``utils/wireframe.py``,
+``utils/mesh.py``), the browser viewer (``web.py``, ``cli --serve``),
+profiling (``utils/profiling.py``), the native npz loader (``native.py``)
+and the scalar oracle (``ops/oracle.py``).  Entry points run on the CUDA
+card unless they are given ``device="cpu"``, where the kernels' plain
+PyTorch versions run instead.
 """
 
+from .version import __version__
+from .api import load_tree, render
 from .camera import Camera
 from .models import MegaNeRFModel
 from .options import RenderOptions
-from .n3tree import N3Tree, shell_tree, sphere_tree, tree_from_numpy
+from .n3tree import (DataFormat, N3Tree, random_tree, shell_tree,
+                     sphere_tree, tree_from_numpy)
 from .ops.accel import (CHUNK_EXACT_BUDGETS, DEFAULT_SEGMENTS, LeafMap,
                         build_leaf_map, build_turbo_leaf_map,
                         order_from_hints, order_from_steps,
@@ -47,6 +55,7 @@ from .utils.tuning import device_tuning
 from .viewer import Viewer
 
 __all__ = [
+    "__version__", "render", "load_tree", "DataFormat", "random_tree",
     "Camera", "RenderOptions", "N3Tree", "shell_tree", "sphere_tree",
     "tree_from_numpy", "DEFAULT_SEGMENTS", "LeafMap", "build_leaf_map",
     "order_from_hints", "render_frame_fast", "render_frame_fast_segmented",
@@ -60,3 +69,12 @@ __all__ = [
     "RenderResult", "fresh_visit_tracker", "render_frame", "render_rays",
     "Viewer",
 ]
+
+
+def __getattr__(name):
+    # lazy: the browser viewer pulls in http.server and threading only
+    # when it is used
+    if name in ("WebViewer", "serve"):
+        from . import web
+        return getattr(web, name)
+    raise AttributeError(name)

@@ -10,10 +10,10 @@ runs the kernels' plain versions).  Run it as::
     python -m mega_nerf_viewer_tpu_torch.cli tree.npz --orbit --frames 4
 
 ``--turbo`` renders on the turbo leaf map and ``--motion-mode`` picks how
-the viewer's async policy regains ray orders under motion.  Not ported
-yet, and refused: ``--serve`` (the browser viewer) and ``--sharded``
-(ROADMAP queue 1, items 9 and 10); ``--foveation`` > 1 makes the viewer
-raise (item 9).
+the viewer's async policy regains ray orders under motion.  ``--serve
+PORT`` serves the browser viewer instead of writing frames (``--serve 0``
+picks a free port and prints it).  Not ported yet, and refused:
+``--sharded`` (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -77,8 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--world_up", type=str, default="0,0,1",
                    help="world up direction, e.g. 0,0,1=blender")
     p.add_argument("--grid", type=int, default=None,
-                   help="show octree wireframe overlay boxes up to depth "
-                        "(not ported yet: the viewer raises)")
+                   help="show octree wireframe overlay boxes up to depth")
     # --- headless mode controls ---
     p.add_argument("-o", "--output", type=str, default="out.png",
                    help="output PNG path (or prefix for --frames > 1)")
@@ -101,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max-empty-cube accelerated marching (output "
                         "within 1e-3 of the exact walk)")
     p.add_argument("--foveation", type=int, default=1,
-                   help="approximate foveated mode, 1 = off (> 1 not "
-                        "ported)")
+                   help="approximate foveated mode: periphery rendered "
+                        "at 1/N resolution, center window exact "
+                        "(1 = off)")
     p.add_argument("--motion-mode", choices=("rehint", "dilate"),
                    default="rehint",
                    help="how async-policy moved frames regain ray order "
@@ -114,7 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "skip the final unpermute and the PNG writer "
                         "applies the inverse ray order (same pixels)")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
-                   help="serve an interactive browser viewer (not ported)")
+                   help="serve an interactive browser viewer on PORT "
+                        "(the GLFW/ImGui window equivalent; 0 = "
+                        "ephemeral port) instead of rendering frames")
     p.add_argument("--host", type=str, default="127.0.0.1",
                    help="bind address for --serve")
     p.add_argument("--device", type=str, default=None,
@@ -132,10 +134,6 @@ def _vec3(s: str) -> np.ndarray:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.serve is not None:
-        raise NotImplementedError(
-            "--serve (web.py, the browser viewer) is not ported yet: "
-            "ROADMAP queue 1, item 9")
     if args.sharded:
         raise NotImplementedError(
             "--sharded (parallel/, multi-device frames) is not ported yet: "
@@ -187,6 +185,15 @@ def main(argv=None) -> int:
                    if max_cap else None)
     else:
         print("No octree file given; rendering background only.")
+
+    if args.serve is not None:
+        from .web import WebViewer
+        wv = WebViewer(viewer, host=args.host, port=args.serve)
+        port = wv.start()
+        print(f"Serving interactive viewer at http://{args.host}:{port}/"
+              f" (ctrl-c to stop)", flush=True)
+        wv.serve_forever()
+        return 0
 
     # frames reach the PNG writer as device-quantized rgba8
     animate = None

@@ -302,3 +302,34 @@ def field_tree_arrays(occ_fn: Callable[[np.ndarray], np.ndarray],
     fmt = DataFormat(format="SH", basis_dim=basis_dim)
     return (data, child, parent, np.full(3, 0.5, np.float32),
             np.full(3, 0.5, np.float32), fmt, depths)
+
+
+def random_tree(n_chunks: int = 64, basis_dim: int = 4,
+                max_capacity: Optional[int] = None,
+                seed: int = 0, density: float = 3.0, N: int = 2,
+                device=None) -> N3Tree:
+    """Random-topology tree: repeatedly split random leaves, random data
+    (``synthetic.py:305-330`` of the JAX package: the same
+    ``np.random.RandomState(seed)`` draws, so the same arrays)."""
+    rng = np.random.RandomState(seed)
+    N3 = N ** 3
+    data_dim = 3 * basis_dim + 1
+    child = np.zeros((n_chunks, N3), np.int32)
+    parent = np.zeros(n_chunks, np.int32)
+    for nc in range(1, n_chunks):
+        # pick a random leaf slot among existing chunks
+        while True:
+            c = rng.randint(nc)
+            ci = rng.randint(N3)
+            if child[c, ci] == 0:
+                break
+        child[c, ci] = nc - c
+        parent[nc] = c * N3 + ci
+    data = (rng.randn(n_chunks, N3, data_dim) * 0.5).astype(np.float16)
+    data[..., -1] = rng.gamma(1.0, density, size=(n_chunks, N3)).astype(
+        np.float16)
+    fmt = DataFormat(format="SH", basis_dim=basis_dim)
+    return N3Tree.from_arrays(
+        data, child, parent,
+        np.full(3, 0.5, np.float32), np.full(3, 0.5, np.float32), fmt,
+        max_capacity=max_capacity, device=device)

@@ -107,6 +107,41 @@ class N3Tree:
             sample_counts=self.sample_counts[:cap].cpu().numpy(),
         )
 
+    def gen_wireframe(self, max_depth: int = 4) -> np.ndarray:
+        """World-space AABBs of the leaves, and of the nodes at
+        ``max_depth``, as ``[n_boxes, 6]`` f32 (min_xyz, max_xyz), in the
+        order of a depth-first walk of ``child[:capacity]`` on the host
+        (``tree.py:219-255`` of the JAX package; reference
+        ``N3Tree::gen_wireframe``, ``n3tree.cpp:324-329``, which emits GL
+        line vertices instead)."""
+        child = self.child[: int(self.capacity)].cpu().numpy()
+        scale = self.scale.cpu().numpy()
+        offset = self.offset.cpu().numpy()
+        N = self.N
+        boxes = []
+
+        def rec(nodeid: int, xi: int, yi: int, zi: int, depth: int,
+                gridsz: int) -> None:
+            cnt = 0
+            for i in range(xi * N, (xi + 1) * N):
+                for j in range(yi * N, (yi + 1) * N):
+                    for k in range(zi * N, (zi + 1) * N):
+                        c = int(child[nodeid, cnt])
+                        if c == 0 or depth >= max_depth:
+                            lo = (np.array([i, j, k], np.float32) / gridsz
+                                  - offset) / scale
+                            hi = (np.array([i + 1, j + 1, k + 1], np.float32)
+                                  / gridsz - offset) / scale
+                            boxes.append(np.concatenate([lo, hi]))
+                        else:
+                            rec(nodeid + c, i, j, k, depth + 1, gridsz * N)
+                        cnt += 1
+
+        rec(0, 0, 0, 0, 0, N)
+        if not boxes:
+            return np.zeros((0, 6), np.float32)
+        return np.stack(boxes).astype(np.float32)
+
     @staticmethod
     def from_arrays(data: np.ndarray, child: np.ndarray,
                     parent: np.ndarray, scale: np.ndarray,
@@ -148,13 +183,26 @@ class N3Tree:
              device=None) -> "N3Tree":
         """Load a PlenOctree ``.npz`` in the svox schema (``N3Tree::open``
         + ``load_npz``, ``n3tree.cpp:16-205``).  ``bounds_only`` keeps the
-        root chunk with all leaves (``main.cpp:529-539``)."""
+        root chunk with all leaves (``main.cpp:529-539``).  The arrays are
+        read by the native loader when it is available (``native.py``),
+        else by numpy, as in the JAX package (``tree.py:155-160``)."""
         if not str(path).endswith(".npz"):
             raise ValueError("expected a .npz file")
         device = resolve_device(device)
-        with np.load(path, allow_pickle=False) as npz:
-            (data, child, parent, scale, offset, data_format,
-             sample_counts) = load_npz_host(npz, vq_bug_compat=vq_bug_compat)
+        from .. import native
+        npz = None
+        if native.available():
+            try:
+                npz = native.load_npz(str(path))
+            except RuntimeError:
+                npz = None
+        if npz is not None:
+            host = load_npz_host(npz, vq_bug_compat=vq_bug_compat)
+        else:
+            with np.load(path, allow_pickle=False) as npz:
+                host = load_npz_host(npz, vq_bug_compat=vq_bug_compat)
+        (data, child, parent, scale, offset, data_format,
+         sample_counts) = host
         if bounds_only:
             data = data[:1]
             child = np.zeros_like(child[:1])
@@ -268,7 +316,9 @@ def load_npz_host(npz, vq_bug_compat: bool = True):
 
 
 def _decode_vq(npz, data_dim: int, n3: int, bug_compat: bool) -> np.ndarray:
-    """Vectorized VQ colour decode (reference ``n3tree.cpp:109-175``)."""
+    """VQ colour decode (reference ``n3tree.cpp:109-175``): the native
+    decoder when it is available (``tree.py:363-366`` of the JAX package),
+    else vectorized numpy."""
     quant_colors = np.asarray(npz["quant_colors"])       # [nq, 65536, 3] f16
     if quant_colors.dtype != np.float16:
         raise ValueError("codebook must be stored in half precision")
@@ -281,6 +331,15 @@ def _decode_vq(npz, data_dim: int, n3: int, bug_compat: bool) -> np.ndarray:
     n_retain = retained.shape[0] if retained is not None else 0
     n_basis = n_basis_q + n_retain
     capacity = quant_map.shape[1]
+
+    from .. import native
+    if native.available():
+        sigma_arr = np.asarray(npz["sigma"]).reshape(capacity, n3)
+        return native.vq_decode(
+            np.asarray(npz["quant_map"]), quant_colors,
+            retained.reshape(n_retain, capacity, n3).astype(np.float16)
+            if retained is not None else None,
+            sigma_arr, data_dim, bug_compat=bug_compat)
 
     data = np.zeros((capacity, n3, data_dim), dtype=np.float16)
     decoded = quant_colors[np.arange(n_basis_q)[:, None, None],

@@ -65,11 +65,18 @@ def _dda_unit_batch(pos: torch.Tensor, invdir: torch.Tensor) -> torch.Tensor:
 
 
 def composite_background(out: torch.Tensor, opt: RenderOptions,
-                         bg_value: Optional[float] = None) -> torch.Tensor:
-    """Offscreen background composite: rgb += bg * (1 - alpha)."""
+                         bg_value: Optional[float] = None,
+                         bg_rgb: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Offscreen background composite: rgb += bg * (1 - alpha).
+    ``bg_rgb`` [R, 3] is a per-pixel background (the overlay colours of
+    the grid and mesh frame, ``renderer_kernel.cu:260-263``) and wins over
+    ``bg_value``, which wins over ``opt.background_brightness``."""
+    nalpha = 1.0 - out[:, 3:4]
+    if bg_rgb is not None:
+        return torch.cat([out[:, :3] + bg_rgb * nalpha, out[:, 3:4]], dim=1)
     bg = opt.background_brightness if bg_value is None else bg_value
     bg = float(np.float32(bg))
-    nalpha = 1.0 - out[:, 3:4]
     return torch.cat([out[:, :3] + bg * nalpha, out[:, 3:4]], dim=1)
 
 

@@ -38,9 +38,15 @@ silhouette sweep, or, under the async policy with ``motion_mode``
 (``accel.render_frame_motion``).  ``use_turbo_map`` renders on the turbo
 leaf map where it is valid.
 
-Not ported, and refused with ``NotImplementedError`` rather than run
-another way: ``foveation`` > 1, ``show_grid`` and ``meshes`` (ROADMAP
-queue 1, item 9).  The JAX ``use_dynamic_knobs`` (traced knobs that spare
+``foveation`` > 1 is an approximate mode, off by default: the periphery
+renders at 1/``foveation`` resolution and is upscaled, a centre window at
+full resolution (two sub-Viewers that share the tree, leaf map and skip
+table).  ``show_grid`` and ``meshes`` draw the octree wireframe and mesh
+overlays on the host (``utils/wireframe.py``, ``utils/mesh.py``) and
+composite the frame against them through the exact renderer, the overlay
+depth bounding each ray's march.
+
+The JAX ``use_dynamic_knobs`` (traced knobs that spare
 a recompile) means nothing without jit and is left out, as is
 ``use_pallas_composite``: every guided frame goes through
 ``guided.composite_frame``.  So are the JAX switches ``use_fast_path``,
@@ -61,16 +67,19 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .device import resolve_device
+from .device import host_tensor, resolve_device
 from .n3tree import N3Tree
 from .options import RenderOptions
 from .ops import accel, guided, refine
-from .ops.render import (RenderResult, fresh_visit_tracker, render_frame,
+from .ops.rays import rodrigues, screen2worlddir
+from .ops.render import (RenderResult, composite_background,
+                         fresh_visit_tracker, render_frame, render_rays,
                          to_rgba8)
 from .ops.skip_prepass import build_skip_table
 from .utils.metrics import FpsCounter, FrameTimer
 from .utils.png import write_png
 from .utils.tuning import device_tuning
+from .utils.wireframe import grid_overlay
 
 _log = logging.getLogger(__name__)
 
@@ -111,6 +120,23 @@ def _host_array(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def _fov_compose(imgp: torch.Tensor, imgc: torch.Tensor, *, f: int, y0: int,
+                 x0: int, height: int, width: int) -> torch.Tensor:
+    """The foveated frame on the frames' device (``viewer.py:38-60``): the
+    periphery ``imgp`` upscaled by ``f`` (nearest), its last row and
+    column repeated when ``height`` or ``width`` is not a multiple of
+    ``f``, and the centre window ``imgc`` pasted at (``y0``, ``x0``)."""
+    up = imgp.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)
+    ph, pw = height - up.shape[0], width - up.shape[1]
+    if ph:
+        up = torch.cat([up, up[-1:].expand(ph, -1, -1)], 0)
+    if pw:
+        up = torch.cat([up, up[:, -1:].expand(-1, pw, -1)], 1)
+    up = up.contiguous()
+    up[y0:y0 + imgc.shape[0], x0:x0 + imgc.shape[1]] = imgc
+    return up
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -162,9 +188,18 @@ class Viewer:
         # sigma_thresh at or above the threshold it was built for
         self.use_turbo_map = False
         self._leaf_map_turbo_thresh = None
-        # refused when set (see the module docstring)
+        # the approximate foveated mode (module docstring): the periphery
+        # at 1/foveation resolution, a centre window of foveation_center of
+        # each axis at full resolution, each a sub-Viewer
         self.foveation = 1
+        self.foveation_center = 0.5
+        self._fov_sub = None              # (periphery, centre) Viewers
+        self._fov_key = None
+        self._fov_motion_gated = False    # logged once per episode
+        self._fov_subs_stale = False      # the subs missed a pose
+        # overlay meshes (utils.mesh.Mesh), drawn with the grid
         self.meshes = []
+        self._grid_cache = None
         # how the segmented frame meets stale budgets (module docstring):
         # "sync" redoes the frame, "async" escalates on the next frame,
         # "device" re-marches on the card and retunes on the next frame
@@ -258,6 +293,9 @@ class Viewer:
         # a new tree shifts the sample-count distribution: re-derive
         self._guided_segments = None
         self._guided_seg_src = None
+        # the sub-Viewers' caches and hints belong to the old tree
+        self._fov_sub = None
+        self._fov_key = None
 
     def clear(self):
         self.tree = None
@@ -275,6 +313,8 @@ class Viewer:
             self.options = self.options.replace(appearance_embedding=0)
         self._can_reuse_results = False
         self._guided_cache = None
+        self._fov_sub = None              # the subs cache the old model's
+        self._fov_key = None
 
     def resize(self, width: int, height: int):
         """Resize the virtual framebuffer (reference ``Impl::resize``,
@@ -301,23 +341,14 @@ class Viewer:
         self._guided_cache = None
 
     # ------------------------------------------------------------------
-    def _check_ported(self) -> None:
-        """Refuse the modes this port does not have yet."""
-        opt = self.options
+    def _check_modes(self) -> None:
+        """Refuse an unknown overflow policy or motion mode."""
         if self.overflow_policy not in OVERFLOW_POLICIES:
             raise ValueError(f"overflow_policy {self.overflow_policy!r} not "
                              f"in {OVERFLOW_POLICIES}")
         if self.motion_mode not in MOTION_MODES:
             raise ValueError(f"motion_mode {self.motion_mode!r} not in "
                              f"{MOTION_MODES}")
-        if int(self.foveation) > 1:
-            raise NotImplementedError(
-                "foveation > 1 (_render_foveated) is not ported yet: "
-                "ROADMAP queue 1, item 9")
-        if opt.show_grid or self.meshes:
-            raise NotImplementedError(
-                "show_grid and meshes (_render_with_grid, utils/wireframe, "
-                "utils/mesh) are not ported yet: ROADMAP queue 1, item 9")
 
     def render(self, fetch: bool = True):
         """Render one frame, running refinement/prune per the reference's
@@ -336,7 +367,7 @@ class Viewer:
             img[..., 3] = 1.0
             self.fps.tick()
             return img
-        self._check_ported()
+        self._check_modes()
 
         camera_changed = cam.has_changed()
         if camera_changed:
@@ -357,9 +388,31 @@ class Viewer:
         needs_votes = (opt.use_splitting and not cam.is_dragging()
                        and self.model is not None)
         res = None
-        if opt.use_guided_sampling and not cam.is_dragging() \
+        fov_ok = (self.tree.N == 2 and not track_visit and not needs_votes
+                  and int(self.foveation) > 1 and not opt.render_depth
+                  and not opt.show_grid and not self.meshes)
+        # a moving guided camera is not foveated (viewer.py:398-421 of the
+        # JAX package: the two subs' fixed costs outweigh the rays saved);
+        # the subs miss that pose and are refreshed when foveation resumes
+        if (fov_ok and opt.use_guided_sampling and self.model is not None
+                and camera_changed and not cam.is_dragging()):
+            fov_ok = False
+            self._fov_subs_stale = True
+            if not self._fov_motion_gated:
+                self._fov_motion_gated = True
+                _log.info("foveation gated off while a guided camera "
+                          "moves; it resumes when the camera settles")
+        elif not camera_changed:
+            self._fov_motion_gated = False
+        if fov_ok:
+            with self.timer.time("render"):
+                img = self._render_foveated(camera_changed)
+        elif opt.use_guided_sampling and not cam.is_dragging() \
                 and self.model is not None:
             img, res = self._render_guided(track_visit)
+        elif opt.show_grid or self.meshes:
+            with self.timer.time("render"):
+                img, res = self._render_with_grid(track_visit)
         elif self.tree.N == 2 and not track_visit:
             # leaf-map path, votes included when refining; each expand
             # drops the map and the next frame rebuilds it
@@ -589,6 +642,124 @@ class Viewer:
             return img, RenderResult(out=None, split_vote=split_vote,
                                      sample_vote=sample_vote, visited=None)
         return img, None
+
+    def _render_foveated(self, camera_changed: bool) -> torch.Tensor:
+        """The approximate foveated frame (``viewer.py:797-896``): the
+        periphery at 1/``foveation`` resolution and a centre window at full
+        resolution, each through a sub-Viewer's fast (or guided) frame, then
+        composed on the device.  A pinhole crop only shifts cx and cy, so
+        the centre window's rays are the full frame's.  The subs share the
+        tree, the leaf map and the skip table by reference; their orders,
+        budgets and overflow state settle at their own resolutions."""
+        cam = self.camera
+        opt = self.options
+        f = int(self.foveation)
+        W, H = cam.width, cam.height
+        q = 2 * f
+        w1 = max(q, int(W * self.foveation_center) // q * q)
+        h1 = max(q, int(H * self.foveation_center) // q * q)
+        x0, y0 = (W - w1) // 2, (H - h1) // 2
+        sizes = ((W // f, H // f), (w1, h1))
+        key = (W, H, f, w1, h1)
+        if self._fov_key != key or self._fov_sub is None:
+            self._fov_sub = tuple(
+                Viewer(camera=Camera(w, h, 1.0), options=opt,
+                       device=self.device) for w, h in sizes)
+            self._fov_key = key
+        # the parent's knobs govern the subs, every frame
+        for v, (w, h) in zip(self._fov_sub, sizes):
+            v.overflow_policy = self.overflow_policy
+            v.overflow_check_interval = self.overflow_check_interval
+            v.use_turbo_map = self.use_turbo_map
+            v.fast_chunk_size = min(self.fast_chunk_size,
+                                    max(256, (w * h) // 16))
+        self._ensure_maps(False)
+        intr = ((cam.fx / f, cam.fy / f, cam.cx / f, cam.cy / f),
+                (cam.fx, cam.fy, cam.cx - x0, cam.cy - y0))
+        guided_ok = (opt.use_guided_sampling and self.model is not None
+                     and not cam.is_dragging())
+        # whatever dropped the parent's guided cache (a camera move, an
+        # edit of the tree, a resize) or a pose the subs missed drops the
+        # subs' caches too
+        subs_stale = self._fov_subs_stale
+        if not self._can_reuse_results or subs_stale:
+            self._guided_cache = None
+            for v in self._fov_sub:
+                v._can_reuse_results = False
+                v._guided_cache = None
+            self._can_reuse_results = True
+            self._fov_subs_stale = False
+        imgs = []
+        for v, (fx, fy, cx, cy) in zip(self._fov_sub, intr):
+            v.tree = self.tree
+            v._leaf_map = self._leaf_map
+            v._leaf_map_turbo_thresh = self._leaf_map_turbo_thresh
+            v._skip_table = self._skip_table
+            v._skip_thresh = self._skip_thresh
+            v.options = opt
+            v.model = self.model if guided_ok else None
+            sc = v.camera
+            sc.fx, sc.fy, sc.cx, sc.cy = fx, fy, cx, cy
+            sc.center = cam.center.copy()
+            sc.v_back = cam.v_back.copy()
+            sc.v_world_up = cam.v_world_up.copy()
+            sc._update()
+            if camera_changed or subs_stale:
+                v._order_stale = True
+                v._can_reuse_results = False
+            if guided_ok:
+                img, _ = v._render_guided(False)
+            else:
+                img, _ = v._render_fast(need_votes=False)
+            imgs.append(img)
+        return _fov_compose(imgs[0], imgs[1], f=f, y0=y0, x0=x0, height=H,
+                            width=W)
+
+    def _render_with_grid(self, track_visit: bool):
+        """The frame with the octree wireframe and mesh overlays
+        (``viewer.py:1129-1174``): the overlay, drawn on the host and cached
+        per tree generation, grid depth and camera, bounds each ray's exact
+        march by its depth (``tmax_bg``, ``renderer_kernel.cu:277-280``),
+        and line and mesh pixels composite against their colour
+        (``composite_and_write``, ``renderer_kernel.cu:215-241``)."""
+        cam = self.camera
+        opt = self.options
+        if opt.show_grid:
+            key = (opt.grid_max_depth, self._tree_gen,
+                   cam.transform.tobytes(), cam.fx, cam.fy,
+                   cam.cx, cam.cy, cam.width, cam.height)
+            if self._grid_cache is None or self._grid_cache[0] != key:
+                with self.timer.time("gen_wire"):
+                    overlay = grid_overlay(self.tree, cam,
+                                           opt.grid_max_depth)
+                self._grid_cache = (key,) + overlay
+            _, overlay_rgb, overlay_depth = self._grid_cache
+        else:
+            overlay_rgb = np.zeros((cam.height, cam.width, 3), np.float32)
+            overlay_depth = np.full((cam.height, cam.width), 1e9,
+                                    np.float32)
+        if self.meshes:
+            # the mesh layer meets the grid by depth, as in the reference's
+            # shared framebuffer (mesh.cpp:135-166)
+            overlay_rgb = overlay_rgb.copy()
+            overlay_depth = overlay_depth.copy()
+            for m in self.meshes:
+                m.draw(cam, overlay_rgb, overlay_depth)
+        dev = self.device
+        transform = host_tensor(cam.transform, torch.float32, dev)
+        dirs, cen = screen2worlddir(cam.width, cam.height, cam.fx, cam.fy,
+                                    cam.cx, cam.cy, transform)
+        vdirs = rodrigues(opt.rot_dirs, dirs)
+        depth = host_tensor(overlay_depth.reshape(-1), torch.float32, dev)
+        res = render_rays(self.tree, dirs, vdirs, cen, opt, tmax_bg=depth,
+                          track_visit=track_visit)
+        has_line = (depth < 1e9)[:, None]
+        bg_rgb = torch.where(
+            has_line, host_tensor(overlay_rgb.reshape(-1, 3), torch.float32,
+                                  dev),
+            float(np.float32(opt.background_brightness)))
+        img = composite_background(res.out, opt, bg_rgb=bg_rgb)
+        return img.reshape(cam.height, cam.width, 4), res
 
     def _render_motion_rehint(self, hints, skip_table):
         """One re-hint motion pose (``viewer.py:958-1002``): the quarter

@@ -289,8 +289,9 @@ def test_cli_apng_depth_and_save_tree(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PCLI.main(["--serve", "0", "--device", "cpu"])
+    """Each mode the port leaves out raises NotImplementedError naming its
+    ROADMAP item; none renders another way.  Only ``--sharded`` (queue 1,
+    item 10) is left."""
     with pytest.raises(NotImplementedError, match="item 10"):
         PCLI.main(["--sharded", "--device", "cpu"])
     assert PCLI.main([str(tmp_path / "missing.npz"), "--device", "cpu"]) == 1

@@ -30,6 +30,12 @@ def test_import_leaves_out_jax():
             "mega_nerf_viewer_tpu_torch.cli, "
             "mega_nerf_viewer_tpu_torch.utils.png, "
             "mega_nerf_viewer_tpu_torch.utils.metrics, "
+            "mega_nerf_viewer_tpu_torch.utils.profiling, "
+            "mega_nerf_viewer_tpu_torch.utils.wireframe, "
+            "mega_nerf_viewer_tpu_torch.utils.mesh, "
+            "mega_nerf_viewer_tpu_torch.web, "
+            "mega_nerf_viewer_tpu_torch.native, "
+            "mega_nerf_viewer_tpu_torch.ops.oracle, "
             "mega_nerf_viewer_tpu_torch.probes.gather_probe, "
             "mega_nerf_viewer_tpu_torch.probes.prepass_breakdown, "
             "mega_nerf_viewer_tpu_torch.probes.exact_breakdown\n"
@@ -65,6 +71,10 @@ def test_no_source_imports_jax():
             os.path.join("models", "meganerf.py"), "viewer.py", "api.py",
             "cli.py", os.path.join("utils", "png.py"),
             os.path.join("utils", "metrics.py"),
+            os.path.join("utils", "profiling.py"),
+            os.path.join("utils", "wireframe.py"),
+            os.path.join("utils", "mesh.py"), "web.py", "native.py",
+            "version.py", os.path.join("ops", "oracle.py"),
             os.path.join("probes", "gather_probe.py"),
             os.path.join("probes", "prepass_breakdown.py"),
             os.path.join("probes", "exact_breakdown.py")} <= names
@@ -107,10 +117,14 @@ def _entry_points():
         lambda: gather_probe.main(["11"]),
         lambda: prepass_breakdown.main(["1"]),
         lambda: exact_breakdown.main(["1"]),
+        lambda: P.serve(port=0),
+        lambda: P.WebViewer(P.Viewer(), port=0),
+        lambda: cli.main([fixture, "-w", "8", "--height", "8", "--serve",
+                          "0"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(13))
+@pytest.mark.parametrize("i", range(16))
 def test_entry_point_without_device_needs_a_card(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -184,3 +198,49 @@ def test_exact_kernels_refuse_cpu_tensors():
     P.collect_samples(tree, d, d, cen, np.array([1, 1]), np.zeros(3),
                       np.ones(3), opt, track_visit=True)
     assert kernels.LAUNCHES == before
+
+
+def _native_loads(monkeypatch, env):
+    """The paths ``native`` hands to ``ctypes.CDLL`` when it first loads,
+    with ``NERFVIEW_NATIVE_LIB`` set to ``env`` (or unset)."""
+    import ctypes
+    from mega_nerf_viewer_tpu_torch import native
+    loaded = []
+    cdll = ctypes.CDLL
+
+    def spy(path, *a, **kw):
+        loaded.append(os.path.realpath(str(path)))
+        return cdll(path, *a, **kw)
+
+    monkeypatch.setattr(ctypes, "CDLL", spy)
+    if env is None:
+        monkeypatch.delenv("NERFVIEW_NATIVE_LIB", raising=False)
+    else:
+        monkeypatch.setenv("NERFVIEW_NATIVE_LIB", env)
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.available(), native.build_error()
+    return loaded
+
+
+def test_native_never_loads_the_committed_library(monkeypatch):
+    """The port builds ``native/nerfview_native.cpp`` into
+    ``build/native/`` and never loads ``native/libnerfview.so`` (built
+    with -march=native for another CPU)..."""
+    from mega_nerf_viewer_tpu_torch import native
+    committed = os.path.realpath(os.path.join(REPO, "native",
+                                              "libnerfview.so"))
+    loaded = _native_loads(monkeypatch, None)
+    assert loaded == [os.path.realpath(str(native.library_path()))]
+    assert committed not in loaded
+
+
+def test_native_override_wins(monkeypatch, tmp_path):
+    """...unless ``NERFVIEW_NATIVE_LIB`` names it (or any library): the
+    override wins over the build, and a missing one falls back to it."""
+    from mega_nerf_viewer_tpu_torch import native
+    built = os.path.realpath(str(native.build()))
+    committed = os.path.join(REPO, "native", "libnerfview.so")
+    assert _native_loads(monkeypatch, committed) == [
+        os.path.realpath(committed)]
+    assert _native_loads(monkeypatch, str(tmp_path / "none.so")) == [built]

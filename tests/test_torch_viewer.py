@@ -475,25 +475,6 @@ def test_viewer_refuses_tree_on_other_device():
         P.Viewer(meta, device="cpu")
 
 
-@pytest.mark.parametrize("gate", ["foveation", "grid", "meshes"])
-def test_unported_modes_raise(gate):
-    """Each mode the port leaves out raises NotImplementedError naming its
-    ROADMAP item; none renders another way."""
-    pv = P.Viewer(P.sphere_tree(basis_dim=1, depth=2, device="cpu"),
-                  camera=_cams(8, 8, 10.0)[1], device="cpu")
-    if gate == "foveation":
-        pv.foveation = 2
-    elif gate == "grid":
-        pv.options = pv.options.replace(show_grid=True)
-    else:
-        pv.meshes = [object()]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pv.render()
-    # no tree: the background frame needs none of them
-    pv.clear()
-    assert pv.render().shape == (8, 8, 4)
-
-
 # ----------------------------------------------------------------------
 # the moving camera: overflow policies, re-hint frames, the turbo map
 # (test_viewer.py:138-420, :747-773, :843-889)
