@@ -60,7 +60,22 @@ shapes of the main paths, and drives both paths of the port:
   served 1080p frame against ``render_rgba8``, 12 events read back, grid
   and foveation edits) and ``cli --serve 0`` in a subprocess, a
   ``trace()`` holding the kernels' names, and the native loader built from
-  ``native/nerfview_native.cpp`` and held against numpy.
+  ``native/nerfview_native.cpp`` and held against numpy;
+* multi-device frames and the eager TorchScript fallback (phase 21): on
+  the scenes of phases 4, 8 and 12, every sharded path of
+  ``mega_nerf_viewer_tpu_torch.parallel`` (the exact frame with visit marks,
+  the fast frame, the segmented frame with the stride and the chunk-exact
+  deals and sorted output, three re-hint motion poses, the guided frame,
+  the frame-refine step) at a world of one under NCCL in-process, each
+  against the single-device frame of the same pose, with the collectives'
+  share of a frame from the profiler; a container that does not convert,
+  loaded through the fallback, its query, the host guided invalidation at
+  1080p (kernel G's padded composite) and a Viewer guided frame;
+  ``_query_grouped`` beside ``query_grouped``; ``cli --sharded`` in a
+  subprocess; then the same sharded paths at a world of two, two gloo
+  processes sharing the card (this script started again with
+  ``--sharded-rank``), gloo's collectives on CUDA tensors checked first,
+  both ranks' outputs bit-equal.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -242,6 +257,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        # a rank of phase 21's two-rank run, started by phase 21 itself
+        return sharded_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import mega_nerf_viewer_tpu_torch as P
     from mega_nerf_viewer_tpu_torch import kernels
     from mega_nerf_viewer_tpu_torch.ops import accel
@@ -459,15 +477,17 @@ def main():
     small_viewer(P, dev)
     torch.cuda.empty_cache()
     rest_launches = rest_phase(P, kernels)
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_phase(P, kernels, dev)
 
-    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19 and 20),
+    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20 and 21),
     # summed over the paths for the kernels that several paths run; kernel
     # H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
-            rest_launches))
+            rest_launches, sharded_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -2743,6 +2763,637 @@ def rest_phase(P, kernels):
     native_path(P, tree)
     log(f"phase 20 in {time.perf_counter() - t0:.1f} s; launches {total}")
     return total
+
+
+# ----------------------------------------------------------------------
+# Phase 21: multi-device frames and the eager TorchScript fallback
+# ----------------------------------------------------------------------
+# the voxel scene's chunk on the H100 (device_tuning: 8 march blocks)
+SHARDED_CS = 2048
+# motion poses of benchmarks/motion1080p.py's orbit for the sharded path
+SHARDED_POSES, SHARDED_DEG = 3, 3.0
+# the two-rank run cuts the refinement fill from 4096 splits to this: gloo
+# carries its row layers' all_reduces (128 MiB of f32 each at 256 splits,
+# 16x that at 4096) through host memory and loopback TCP
+WORLD2_SPLIT_BATCH = 256
+# phase 21's kernels: A, B, C, D, E (sharded paths) and G (fallback)
+SHARDED_KERNELS = ("march", "skip_prepass", "collect", "compact_composite",
+                   "exact_march", "padded_composite")
+
+
+def event_ms(fn):
+    """(last result, median device ms of three calls by CUDA events, the
+    three runs); a collective that blocks the host falls inside them."""
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    return out, sorted(runs)[1], runs
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes: two ranks' outputs compared bit for
+    bit without moving them."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sharded_scenes(P, dev, split_batch_size):
+    """The 1080p voxel scene (phase 4), the guided scene and model (phase
+    8) and the refinement scene (phase 12) with ``split_batch_size``."""
+    voxel = P.shell_tree(depth=8, basis_dim=9, sigma_inside=400.0,
+                         device=dev)
+    guided_tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                               device=dev)
+    refine_tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                               max_capacity=REFINE_CAPACITY, device=dev)
+    opt = P.RenderOptions()
+    gopt = P.RenderOptions(max_guided_samples=GUIDED_S, need_viewdir=True,
+                           use_guided_sampling=True)
+    return dict(
+        voxel=(voxel, P.build_leaf_map(voxel),
+               P.build_skip_table(voxel, opt.sigma_thresh), opt),
+        guided=(guided_tree, P.build_leaf_map(guided_tree),
+                P.build_skip_table(guided_tree, gopt.sigma_thresh), gopt,
+                P.MegaNeRFModel.synthetic(data_dim=int(guided_tree.data_dim),
+                                          seed=0, device=dev,
+                                          **GUIDED_MODEL)),
+        refine=(refine_tree, P.RenderOptions(
+            **dict(REFINE_OPT, split_batch_size=split_batch_size))))
+
+
+def sharded_paths(P, mesh, tp_mesh, sc, say):
+    """Every sharded path on ``mesh`` (the refinement step on ``tp_mesh``),
+    each held to the single-device frame of the same pose on this rank:
+    integers equal, pixels within 1e-6 (guided and motion 1e-5).  Returns
+    (times {path: (sharded ms, single ms)}, digests {output: sha256})."""
+    from mega_nerf_viewer_tpu_torch import parallel
+    from mega_nerf_viewer_tpu_torch.ops import accel, guided, render
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, \
+        screen2worlddir
+    dev = mesh.device
+    n = mesh.shape[parallel.RAY_AXIS]
+    times, digests = {}, {}
+    tree, lm, table, opt = sc["voxel"]
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    R = WIDTH * HEIGHT
+    dirs, cen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                cam.cy, torch.as_tensor(cam.transform,
+                                                        device=dev))
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+
+    # -- the exact march with visit marks (kernel E) and the exact frame
+    res, ms, _ = event_ms(lambda: parallel.render_rays_sharded(
+        tree, dirs, vdirs, cen, opt, mesh, track_visit=True))
+    one, ms1, _ = event_ms(lambda: P.render_rays(tree, dirs, vdirs, cen, opt,
+                                                 track_visit=True))
+    err = float((res.out - one.out).abs().max())
+    check(err <= 1e-6, f"sharded exact march differs by {err}")
+    check(torch.equal(res.split_vote, one.split_vote),
+          "sharded split votes differ")
+    check(torch.equal(res.visited, one.visited), "sharded visit marks differ")
+    times["exact rays, visit marks"] = (ms, ms1)
+    img, ms, _ = event_ms(lambda: parallel.render_frame_sharded(
+        tree, cam, opt, mesh))
+    img1, ms1, _ = event_ms(lambda: P.render_frame(
+        tree, WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy, cam.transform,
+        opt)[0])
+    err = float((img - img1).abs().max())
+    check(err <= 1e-6, f"sharded exact frame differs by {err}")
+    times["exact frame"] = (ms, ms1)
+    digests.update(exact=digest(res.out, res.split_vote, res.visited, img))
+    say(f"exact: frame within {err:.1e}, votes and "
+        f"{int(res.visited.sum())} visit marks equal")
+
+    # -- the fast frame (kernels A and B)
+    (img, ov), ms, _ = event_ms(lambda: parallel.render_frame_fast_sharded(
+        tree, lm, cam, opt, mesh, max_dense=64, skip_table=table))
+    ref, ms1, _ = event_ms(lambda: P.render_frame_fast(
+        tree, lm, cam, opt, max_dense=64, chunk_size=0, skip_table=table))
+    check(int(ov) == 0 and int(ref[1]) == 0, "fast frame overflowed")
+    err = float((img - ref[0]).abs().max())
+    check(err <= 1e-6, f"sharded fast frame differs by {err}")
+    times["fast frame"] = (ms, ms1)
+    digests["fast"] = digest(img)
+    fast_ref = ref[0]
+
+    # -- the segmented frame: stride deal, sorted output, chunk-exact
+    _, _, steps, nrec, skips = P.render_frame_fast(
+        tree, lm, cam, opt, max_dense=64, chunk_size=SHARDED_CS,
+        block=16, return_nrec=True, skip_table=table, return_skips=True)
+    order = P.order_from_hints(steps, nrec, skips)
+    segments = list(P.DEFAULT_SEGMENTS)
+    for _ in range(16):
+        seg_img, seg_ov = P.render_frame_fast_segmented(
+            tree, lm, cam, opt, order=order, segments=tuple(segments),
+            chunk_size=SHARDED_CS, skip_table=table)
+        if not seg_ov.any():
+            break
+        segments = [(f, max(1, b * 2)) if hit else (f, b)
+                    for (f, b), hit in zip(segments, seg_ov.tolist())]
+    check(not seg_ov.any(), "single-device segments did not settle")
+    escalations = 0
+    while True:
+        img, ov = parallel.render_frame_fast_segmented_sharded(
+            tree, lm, cam, opt, order, tuple(segments), mesh,
+            chunk_size=SHARDED_CS, skip_table=table)
+        if not ov.any():
+            break
+        escalations += 1
+        check(escalations < 8, "sharded segments did not settle")
+        segments = [(f, max(1, b * 2)) if hit else (f, b)
+                    for (f, b), hit in zip(segments, ov.tolist())]
+    (img, ov), ms, _ = event_ms(
+        lambda: parallel.render_frame_fast_segmented_sharded(
+            tree, lm, cam, opt, order, tuple(segments), mesh,
+            chunk_size=SHARDED_CS, skip_table=table))
+    _, ms1, _ = event_ms(lambda: P.render_frame_fast_segmented(
+        tree, lm, cam, opt, order=order, segments=tuple(segments),
+        chunk_size=SHARDED_CS, skip_table=table))
+    err = float((img - fast_ref).abs().max())
+    check(err <= 1e-6, f"sharded segmented frame differs by {err}")
+    times["segmented frame (stride deal)"] = (ms, ms1)
+    rows, ov2, index = parallel.render_frame_fast_segmented_sharded(
+        tree, lm, cam, opt, order, tuple(segments), mesh,
+        chunk_size=SHARDED_CS, skip_table=table, sorted_output=True)
+    check(torch.equal(rows[index].reshape(HEIGHT, WIDTH, 4), img),
+          "sorted output's index map does not recover the frame")
+    check(torch.equal(ov2, ov), "sorted output's overflow differs")
+    perm = order[0]
+    counts = P.seg_counts_from_hints(nrec[perm].cpu(), SHARDED_CS,
+                                     quantum=n)
+    pad = (-R) % (n * SHARDED_CS)
+    st = torch.cat([steps[perm], steps[perm][-1:].expand(pad)])
+    costs = st.reshape(-1, SHARDED_CS).sum(1).double().cpu().numpy()
+    (cimg, cov), ms, _ = event_ms(
+        lambda: parallel.render_frame_fast_segmented_sharded(
+            tree, lm, cam, opt, order, None, mesh, chunk_size=SHARDED_CS,
+            skip_table=table, seg_counts=counts, chunk_costs=costs))
+    check(not cov.any(), "chunk-exact sharded frame overflowed")
+    err_c = float((cimg - fast_ref).abs().max())
+    check(err_c <= 1e-6, f"chunk-exact sharded frame differs by {err_c}")
+    times["segmented frame (chunk-exact deal)"] = (ms, ms1)
+    digests["segmented"] = digest(img, rows, index, cimg)
+    say(f"segmented: segments {segments} ({escalations} sharded "
+        f"escalations), chunk-exact {counts}; frames within "
+        f"{max(err, err_c):.1e}, sorted output bit-exact")
+
+    # -- the re-hint motion poses
+    ph = accel.pack_hints(steps, nrec, skips)
+    mperm, minv = accel.order_from_packed_device(ph)
+    qperm = accel.quarter_order_from_packed(ph, width=WIDTH)
+    msegs = [(float(f), int(b)) for f, b in accel.segments_from_hint_cdf(
+        accel.hint_class_cdf(nrec), R, margin=2, top_headroom=True)]
+    pix_str, qpix_str = parallel.motion_episode_layout(
+        (mperm, minv), qperm, mesh=mesh, chunk_size=SHARDED_CS,
+        hint_chunk=SHARDED_CS)
+    qsp = qperm
+    mcam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    pose_ms, single_ms, worst, m_esc = [], [], 0.0, 0
+    for _ in range(SHARDED_POSES):
+        motion_step(mcam, SHARDED_DEG)
+        mcam._update()
+        while True:
+            out, pms, _ = event_ms(
+                lambda: parallel.render_frame_motion_sharded(
+                    tree, lm, mcam, opt, qpix_str, pix_str, tuple(msegs),
+                    mesh=mesh, chunk_size=SHARDED_CS, hint_chunk=SHARDED_CS,
+                    skip_table=table))
+            if not out[1].any():
+                break
+            m_esc += 1
+            check(m_esc < 8, "sharded motion segments did not settle")
+            msegs = [(f, max(1, b * 2)) if hit else (f, b)
+                     for (f, b), hit in zip(msegs, out[1].tolist())]
+        mimg, _, qnext, cdf = out
+        single, sms, _ = event_ms(lambda: P.render_frame_motion(
+            tree, lm, mcam, opt, qsp, segments=tuple(msegs),
+            chunk_size=SHARDED_CS, skip_table=table, hint_stride=2))
+        check(torch.equal(cdf, single[3]), "sharded motion CDF differs")
+        if n == 1:
+            check(torch.equal(qnext[:qsp.shape[0]].long(), single[4].long()),
+                  "sharded quarter order differs")
+        real = qnext[qnext < (1 << 30)]
+        check(torch.equal(torch.sort(real.long()).values,
+                          torch.sort(qperm.long()).values),
+              "the dealt quarter order is not a permutation")
+        fresh = P.render_frame_fast(tree, lm, mcam, opt, max_dense=64,
+                                    chunk_size=0, skip_table=table)[0]
+        worst = max(worst, float((mimg - fresh).abs().max()))
+        digests[f"motion pose {len(pose_ms)}"] = digest(mimg, qnext, cdf)
+        pose_ms.append(pms)
+        single_ms.append(sms)
+        qpix_str, qsp = qnext, single[4]
+    check(worst <= 1e-5, f"sharded motion frames differ by {worst}")
+    times["motion pose"] = (sorted(pose_ms)[len(pose_ms) // 2],
+                            sorted(single_ms)[len(single_ms) // 2])
+    say(f"motion: {SHARDED_POSES} poses at {SHARDED_DEG} deg, segments "
+        f"{msegs} ({m_esc} escalations), CDFs equal, frames within "
+        f"{worst:.1e} of fresh frames")
+
+    # -- the guided frame (kernels B, C and D)
+    gtree, glm, _, gopt, model = sc["guided"]
+    cache, ms1, _ = event_ms(lambda: guided.collect_and_query_fast(
+        gtree, glm, model, cam, gopt, chunk_size=0))
+    gref = guided.composite_frame(gtree, cam, gopt, cache)
+    total = int(cache["num_samples"].sum())
+    budget = -(-total // n // (1 << 16)) * (1 << 16)
+    while True:
+        (gimg, gov), ms, _ = event_ms(lambda: parallel.guided_frame_sharded(
+            gtree, glm, model, cam, gopt, mesh, budget=budget))
+        if not gov:
+            break
+        budget *= 2
+    err = float((gimg - gref).abs().max())
+    check(err <= 1e-5, f"sharded guided frame differs by {err}")
+    times["guided frame"] = (ms, ms1)
+    digests["guided"] = digest(gimg)
+    say(f"guided: {total} samples, per-shard budget {budget}; frame within "
+        f"{err:.1e}")
+
+    # -- the frame-refine step (kernel E, the TP fill)
+    rtree, ropt = sc["refine"]
+    step = parallel.make_frame_refine_step(tp_mesh, ropt)
+    K, spc = ropt.split_batch_size, ropt.samples_per_corner
+    rnd = torch.rand((K, 8, spc, 3), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    rdirs, rcen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                  cam.cy, torch.as_tensor(cam.transform,
+                                                          device=dev))
+    rv = rodrigues(ropt.rot_dirs, rdirs)
+    gm = sc["guided"][4]
+    grid = (gm.grid_dim, gm.min_position, gm.range)
+    (out, new, tracker, n_added), ms, _ = event_ms(lambda: step(
+        rtree, gm.params, *grid, rdirs, rv, rcen,
+        render.fresh_visit_tracker(rtree), rnd=rnd))
+
+    def single_step():
+        r = P.render_rays(rtree, rdirs, rv, rcen, ropt, track_visit=True)
+        tr = torch.maximum(render.fresh_visit_tracker(rtree), r.visited)
+        return (r.out,) + P.expand_voxels_jit(
+            rtree, gm.params, *grid, ropt, r.split_vote, tr, rnd=rnd)
+    (out1, new1, tracker1, n1), ms1, _ = event_ms(single_step)
+    check(n_added == n1 > 0, f"refine step added {n_added}, single {n1}")
+    for k in ("child", "parent", "sample_counts"):
+        check(torch.equal(getattr(new, k), getattr(new1, k)),
+              f"refined tree's {k} differs")
+    ulp = int((new.data.view(torch.int16).int()
+               - new1.data.view(torch.int16).int()).abs().max())
+    check(ulp <= 1, f"refined data differs by {ulp} f16 ulp")
+    check(torch.equal(tracker, tracker1), "refine step's visit marks differ")
+    err = float((out - out1).abs().max())
+    check(err <= 1e-6, f"refine step's frame differs by {err}")
+    times[f"refine step ({K} splits)"] = (ms, ms1)
+    digests["refine"] = digest(out, new.child, new.data, tracker)
+    say(f"refine step on {dict(tp_mesh.shape)}: {n_added} chunks added, "
+        f"topology and marks equal, data within {ulp} f16 ulp")
+    return times, digests
+
+
+def fallback_container(path, data_dim):
+    """A Mega-NeRF container at the guided model's width (8 clusters, 8
+    layers, 256 wide, view directions) whose sine activations do not
+    convert, saved to ``path``."""
+    from torch import nn
+
+    class SineMLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            dims = [6] + [GUIDED_MODEL["hidden"]] * 7 + [data_dim + 1]
+            self.layers = nn.ModuleList(
+                nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+        def forward(self, x, sigma_only: bool = False):
+            h = x
+            for i, layer in enumerate(self.layers):
+                h = layer(h)
+                if i < 7:
+                    h = torch.sin(h)
+            return h
+
+    class Container(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.grid_dim = torch.tensor(GUIDED_MODEL["grid_dim"],
+                                         dtype=torch.int32)
+            self.min_position = torch.tensor(GUIDED_MODEL["min_position"])
+            self.max_position = torch.tensor(GUIDED_MODEL["max_position"])
+            self.centroids = torch.zeros(GUIDED_MODEL["n_clusters"], 3)
+            self.need_viewdir = True
+            self.need_appearance_embedding = False
+            for i in range(GUIDED_MODEL["n_clusters"]):
+                setattr(self, f"sub_module_{i}", torch.jit.script(SineMLP()))
+
+    torch.manual_seed(0)
+    torch.jit.save(torch.jit.script(Container()), path)
+
+
+def fallback_path(P, kernels, dev, sc):
+    """Items 5 and 6 on the card: a container that does not convert,
+    loaded through the eager TorchScript fallback, its ``query`` against
+    the eager forward, the host guided invalidation at 1080p with kernel
+    G's padded composite, a Viewer guided frame, and ``_query_grouped``
+    beside ``query_grouped`` on the guided scene's samples."""
+    from mega_nerf_viewer_tpu_torch.models import meganerf as PM
+    from mega_nerf_viewer_tpu_torch.ops import guided
+    from mega_nerf_viewer_tpu_torch.ops import padded_composite as pc
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, \
+        screen2worlddir
+    tree, lm, table, opt, model = sc["guided"]
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sine.pt")
+        fallback_container(path, int(tree.data_dim))
+        fb, load_ms = timed(lambda: P.MegaNeRFModel.from_torchscript(path))
+        container = torch.jit.load(path, map_location=dev)
+    check(fb._torch_modules is not None, "the sine container converted")
+    check(fb.output_dim == model.output_dim, "fallback output width")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((1 << 16, 6), generator=gen, device=dev)
+    ids = torch.randint(0, fb.n_clusters, (1 << 16,), generator=gen,
+                        device=dev)
+    got, q_ms = timed(lambda: fb.query(ids, x))
+    err = 0.0
+    for c in range(fb.n_clusters):
+        with torch.inference_mode():
+            want = getattr(container, f"sub_module_{c}")(x[ids == c], False)
+        err = max(err, float((got[ids == c] - want).abs().max()))
+    check(err <= 1e-5, f"fallback query differs from the forward by {err}")
+    log(f"phase 21 fallback: loaded in {load_ms:.0f} ms; query of "
+        f"{x.shape[0]} samples {q_ms:.1f} ms, within {err:.1e} of the "
+        f"eager forward")
+    # the host invalidation against the converted model's
+    conv, conv_ms, conv_runs = median3(lambda: guided.collect_and_query_fast(
+        tree, lm, model, cam, opt, chunk_size=SHARDED_CS, skip_table=table))
+    host, host_ms = timed(lambda: guided.collect_and_query_fast(
+        tree, lm, fb, cam, opt, chunk_size=SHARDED_CS, skip_table=table))
+    check(set(host) == {"results", "z_vals", "num_samples", "collect_steps"},
+          f"host path cache {sorted(host)}")
+    check(torch.equal(host["num_samples"], conv["num_samples"]),
+          "host path sample counts differ from the device path's")
+    total = int(host["num_samples"].sum())
+    img, comp_ms, _ = median3(lambda: guided.composite_frame(
+        tree, cam, opt, host))
+    dirs, _ = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy,
+                              torch.as_tensor(cam.transform, device=dev))
+    plain = uncounted(kernels, lambda: pc.composite_results_padded_reference(
+        host["results"], host["z_vals"], host["num_samples"],
+        rodrigues(opt.rot_dirs, dirs), opt, tree.data_format.basis_dim,
+        True))
+    err_g = float((img.reshape(-1, 4) - plain).abs().max())
+    check(err_g <= 1e-5, f"padded composite of the host cache off by {err_g}")
+    check(bool(torch.isfinite(img).all()), "non-finite fallback frame")
+    log(f"phase 21 fallback: host invalidation at {WIDTH}x{HEIGHT} "
+        f"{host_ms:.1f} ms against the converted model's {conv_ms:.3f} ms "
+        f"(runs {[round(r, 3) for r in conv_runs]}), {total} samples; "
+        f"padded composite (kernel G) {comp_ms:.3f} ms, within {err_g:.1e} "
+        f"of its plain version")
+    # a Viewer guided frame with the fallback model (room to grow: no
+    # capacity pressure, so the leaf-map collect and the host path)
+    vtree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                         max_capacity=2 * SHELL_CHUNKS)
+    vlm = P.build_leaf_map(vtree)
+    v = P.Viewer(vtree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL),
+                 options=opt, model=fb)
+    vimg, v_ms = timed(lambda: v.render(fetch=False))
+    direct = uncounted(kernels, lambda: guided.composite_frame(
+        vtree, cam, opt, guided.collect_and_query_fast(
+            vtree, vlm, fb, cam, opt, chunk_size=v.fast_chunk_size,
+            skip_table=P.build_skip_table(vtree, opt.sigma_thresh))))
+    err_v = float((vimg - direct).abs().max())
+    check(err_v <= 1e-5, f"viewer fallback frame differs by {err_v}")
+    log(f"phase 21 fallback: viewer guided frame {v_ms:.1f} ms, within "
+        f"{err_v:.1e} of the direct host path")
+    del v, vtree, vlm, host, img
+    # the ragged_dot reference beside the production dispatcher
+    dirs, cen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                cam.cy, torch.as_tensor(cam.transform,
+                                                        device=dev))
+    vd = rodrigues(opt.rot_dirs, dirs)
+    t_buf, ns = guided.collect_t_fast(tree, lm, dirs, cen, opt,
+                                      skip_table=table)
+    x, cids, *_ = guided._compact_reconstruct(
+        tree, dirs, vd, cen, t_buf, ns, torch.as_tensor(model.grid_dim,
+                                                        device=dev),
+        torch.as_tensor(model.min_position, device=dev),
+        torch.as_tensor(model.range, device=dev), opt,
+        guided._budget(int(ns.sum())))
+    a, a_ms, _ = median3(lambda: PM.query_grouped(model.params, cids, x))
+    b, b_ms, _ = median3(lambda: PM._query_grouped(model.params, cids, x))
+    err_q = float((a - b).abs().max())
+    check(err_q <= 1e-4, f"_query_grouped differs by {err_q}")
+    log(f"phase 21 models: _query_grouped (ragged_dot reference) "
+        f"{b_ms:.3f} ms beside query_grouped {a_ms:.3f} ms on {x.shape[0]} "
+        f"samples, within {err_q:.1e}")
+    return host_ms, conv_ms
+
+
+def collectives_share(P, mesh, sc, say):
+    """The collectives' share of sharded frames on this rank: the profiler's
+    ``parallel.*`` ranges (host time; under gloo, the backend's copies
+    through host memory and loopback TCP included) over the host time of the same profiled frames; the frame's
+    unprofiled time (CUDA events, median of 3) beside it.  Returns {frame:
+    (collective ms, profiled frame ms, frame ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+    from mega_nerf_viewer_tpu_torch import parallel
+    tree, lm, table, opt = sc["voxel"]
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    out = {}
+    for name, fn in (
+            ("fast", lambda: parallel.render_frame_fast_sharded(
+                tree, lm, cam, opt, mesh, max_dense=64, skip_table=table)),
+            ("exact", lambda: parallel.render_frame_sharded(
+                tree, cam, opt, mesh))):
+        _, ms, _ = event_ms(fn)
+        for _ in range(2):           # the first profile warms the profiler
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3 / 3
+        coll = sum(e.cpu_time_total for e in prof.key_averages()
+                   if e.key.startswith("parallel.")) / 1e3 / 3
+        out[name] = (coll, wall, ms)
+        say(f"collectives of the {name} frame: {coll:.3f} ms of {wall:.3f} "
+            f"ms a profiled frame ({100 * coll / wall:.1f}%; host time in "
+            f"the parallel.* ranges); unprofiled frame {ms:.3f} ms")
+    return out
+
+
+def gloo_on_cuda(pm, dev, rank, say):
+    """The port's collectives hand gloo CUDA tensors as they are (no copy
+    of their own): check that gloo takes them in each collective the
+    sharded paths run and gives the right values on the card."""
+    import torch.distributed as dist
+    group = dist.group.WORLD
+    mine = torch.full((5,), rank + 1, dtype=torch.int32, device=dev)
+    got = dict(
+        all_reduce_sum=pm.all_reduce(mine.float(), "sum", group),
+        all_reduce_max=pm.all_reduce(mine, "max", group),
+        all_gather=pm.all_gather(mine, group),
+        broadcast=pm.broadcast(mine))
+    want = dict(all_reduce_sum=[3.0] * 5, all_reduce_max=[2] * 5,
+                all_gather=[1] * 5 + [2] * 5, broadcast=[1] * 5)
+    for name, t in got.items():
+        check(t.device == dev and t.tolist() == want[name],
+              f"gloo {name} on CUDA tensors gave {t}")
+    say(f"gloo took CUDA tensors in {', '.join(got)}: values right, on "
+        f"{dev}")
+
+
+def sharded_rank_main(rank, port, outdir):
+    """One of two ranks of phase 21's two-rank run: gloo on the one card
+    (NCCL refuses two ranks on one device), the sharded paths on a (2,)
+    mesh and the refinement step on a (1, 2) mesh; writes a JSON summary
+    to ``outdir``."""
+    import torch.distributed as dist
+    import mega_nerf_viewer_tpu_torch as P
+    from mega_nerf_viewer_tpu_torch import kernels, parallel
+    from mega_nerf_viewer_tpu_torch.parallel import mesh as pm
+    dev = torch.device("cuda", 0)
+    parallel.multihost.initialize(f"127.0.0.1:{port}", 2, rank,
+                                  backend="gloo", device=dev)
+    check(dist.get_backend() == "gloo", "two ranks on one card run gloo")
+    kernels.build()
+    kernels.reset_launch_counts()
+    lines = []
+
+    def say(msg):
+        lines.append(msg)
+        if rank == 0:
+            log(f"phase 21 world 2: {msg}")
+    gloo_on_cuda(pm, dev, rank, say)
+    sc = sharded_scenes(P, dev, WORLD2_SPLIT_BATCH)
+    mesh = parallel.make_mesh((2,), (parallel.RAY_AXIS,))
+    tp_mesh = parallel.make_mesh((1, 2), (parallel.RAY_AXIS,
+                                          parallel.MODEL_AXIS))
+    times, digests = sharded_paths(P, mesh, tp_mesh, sc, say)
+    share = collectives_share(P, mesh, sc, say)
+    torch.cuda.synchronize()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(times=times, digests=digests, share=share,
+                       launches=dict(kernels.LAUNCHES)), f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(P, kernels, dev):
+    """Phase 21: multi-device frames and the eager TorchScript fallback.
+    World 1 under NCCL in-process (every sharded path against the
+    single-device frame of the same pose), the fallback, ``cli --sharded``
+    in a subprocess, then two gloo ranks sharing the card.  Returns the
+    launch counts of the in-process run."""
+    import torch.distributed as dist
+    from mega_nerf_viewer_tpu_torch import parallel
+    from mega_nerf_viewer_tpu_torch.ops import render
+    from mega_nerf_viewer_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    sc = sharded_scenes(P, dev, REFINE_OPT["split_batch_size"])
+    mesh = parallel.default_mesh(device=dev)
+    check(dist.get_backend() == "nccl", "world 1 on the card runs NCCL")
+
+    def say(msg):
+        log(f"phase 21 world 1: {msg}")
+    times, _ = sharded_paths(P, mesh, mesh, sc, say)
+    for path, (ms, ms1) in times.items():
+        log(f"phase 21 world 1 (NCCL): {path} {ms:.3f} ms sharded, "
+            f"{ms1:.3f} ms single-device (CUDA events, median of 3)")
+    collectives_share(P, mesh, sc, say)
+    host_ms, conv_ms = fallback_path(P, kernels, dev, sc)
+    launches = read_launches(kernels, SHARDED_KERNELS, "phase 21")
+    dist.destroy_process_group()
+
+    # cli --sharded, run plainly: a world of one
+    tree, _, _, opt = sc["voxel"]
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    ref = uncounted(kernels, lambda: render.to_rgba8(P.render_frame(
+        tree, WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy, cam.transform,
+        opt)[0])).cpu().numpy().astype(np.int32)
+    with tempfile.TemporaryDirectory() as td:
+        npz, png = os.path.join(td, "t.npz"), os.path.join(td, "s.png")
+        tree.save_npz(npz)
+        del sc, tree
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "mega_nerf_viewer_tpu_torch.cli", npz,
+             "-w", str(WIDTH), "--height", str(HEIGHT), "--fx", str(FOCAL),
+             "--center=" + ",".join(str(c) for c in CENTER), "--bg",
+             str(opt.background_brightness), "--sharded", "-o", png],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        log(f"phase 21 cli --sharded at {WIDTH}x{HEIGHT}: exit "
+            f"{run.returncode} in {time.perf_counter() - t:.1f} s; "
+            f"{run.stdout.strip()[-200:]}"
+            + (f"; stderr {run.stderr.strip()[-2000:]}" if run.returncode
+               else ""))
+        check(run.returncode == 0, "cli --sharded failed")
+        diff = int(np.abs(read_png(png).astype(np.int32) - ref).max())
+        check(diff <= 1, f"cli --sharded PNG differs by {diff} levels")
+
+        # two gloo ranks sharing the card
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t = time.perf_counter()
+        errs = [open(os.path.join(td, f"rank{r}.err"), "w+")
+                for r in (0, 1)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), str(port), td],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=None if r == 0 else subprocess.DEVNULL, stderr=errs[r])
+            for r in (0, 1)]
+        deadline = time.perf_counter() + 400
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, e) in enumerate(zip(procs, errs)):
+            e.seek(0)
+            check(p.returncode == 0,
+                  f"world-2 rank {r} failed:\n{e.read()[-3000:]}")
+            e.close()
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(td, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    check(ranks[0]["digests"] == ranks[1]["digests"],
+          "the two ranks' outputs differ")
+    w2 = ranks[0]
+    for path, (ms, ms1) in w2["times"].items():
+        log(f"phase 21 world 2 (gloo, one card): {path} {ms:.3f} ms sharded,"
+            f" {ms1:.3f} ms single-device (CUDA events, median of 3; both "
+            f"ranks on the card)")
+    missing = [k for k in SHARDED_KERNELS if k != "padded_composite"
+               and w2["launches"][k] == 0]
+    check(not missing, f"world 2: {missing} never launched")
+    log(f"phase 21 world 2: both ranks bit-equal ({len(w2['digests'])} "
+        f"outputs); rank 0 launches {w2['launches']}; in "
+        f"{time.perf_counter() - t:.1f} s")
+    log(f"phase 21 in {time.perf_counter() - t0:.1f} s; fallback "
+        f"invalidation {host_ms:.1f} ms vs converted {conv_ms:.3f} ms; "
+        f"launches {launches}")
+    return launches
 
 
 if __name__ == "__main__":

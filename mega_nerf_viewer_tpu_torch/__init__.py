@@ -24,7 +24,10 @@ rest of the user-facing path: the Viewer's approximate foveated mode, the
 octree wireframe and mesh overlays (``utils/wireframe.py``,
 ``utils/mesh.py``), the browser viewer (``web.py``, ``cli --serve``),
 profiling (``utils/profiling.py``), the native npz loader (``native.py``)
-and the scalar oracle (``ops/oracle.py``).  Entry points run on the CUDA
+and the scalar oracle (``ops/oracle.py``).  The seventh is multi-device
+frames over ``torch.distributed`` (``parallel``, ``cli --sharded``) and the
+eager TorchScript fallback for a container that does not convert, with its
+host guided path.  Entry points run on the CUDA
 card unless they are given ``device="cpu"``, where the kernels' plain
 PyTorch versions run instead.
 """

@@ -12,8 +12,14 @@ runs the kernels' plain versions).  Run it as::
 ``--turbo`` renders on the turbo leaf map and ``--motion-mode`` picks how
 the viewer's async policy regains ray orders under motion.  ``--serve
 PORT`` serves the browser viewer instead of writing frames (``--serve 0``
-picks a free port and prints it).  Not ported yet, and refused:
-``--sharded`` (ROADMAP queue 1, item 10).
+picks a free port and prints it).  ``--sharded`` renders exact frames with
+the rays split over the ranks of a ``torch.distributed`` group
+(``parallel.render_frame_sharded``): run plainly it is a world of one;
+under ``torchrun`` it joins the group its environment names, and rank 0
+writes the output::
+
+    torchrun --nproc-per-node 2 -m mega_nerf_viewer_tpu_torch.cli \
+        tree.npz --sharded --device cpu
 """
 
 from __future__ import annotations
@@ -95,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_tree", type=str, default=None,
                    help="write the (possibly refined) tree back to npz")
     p.add_argument("--sharded", action="store_true",
-                   help="shard rays across all local devices (not ported)")
+                   help="shard rays over the ranks of the process group "
+                        "(a world of one unless launched by torchrun)")
     p.add_argument("--turbo", action="store_true",
                    help="max-empty-cube accelerated marching (output "
                         "within 1e-3 of the exact walk)")
@@ -134,10 +141,15 @@ def _vec3(s: str) -> np.ndarray:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    lead = True                  # the process that writes and reports
     if args.sharded:
-        raise NotImplementedError(
-            "--sharded (parallel/, multi-device frames) is not ported yet: "
-            "ROADMAP queue 1, item 10")
+        import torch.distributed as dist
+        from .parallel import multihost
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            # launched by torchrun: join its group before the viewer picks
+            # this rank's card
+            multihost.initialize(device=args.device)
+        lead = not dist.is_initialized() or dist.get_rank() == 0
     from .camera import Camera
     from .n3tree import N3Tree
     from .options import options_from_args
@@ -196,6 +208,19 @@ def main(argv=None) -> int:
         return 0
 
     # frames reach the PNG writer as device-quantized rgba8
+    render_one = viewer.render_rgba8
+    if args.sharded and viewer.tree is not None:
+        from .ops.render import to_rgba8
+        from .parallel import default_mesh, render_frame_sharded
+        mesh = default_mesh(device=viewer.device)
+
+        def render_one():
+            viewer.camera._update()
+            img = render_frame_sharded(viewer.tree, viewer.camera,
+                                       viewer.options, mesh)
+            viewer.fps.tick()
+            return to_rgba8(img).cpu().numpy()
+
     animate = None
     if args.output.endswith(".apng"):
         animate = ApngEncoder(fps=args.fps)
@@ -210,13 +235,17 @@ def main(argv=None) -> int:
             viewer.camera.drag_update(
                 -step * span / (2.0 * viewer.camera.movement_speed), 0.0)
             viewer.camera.end_drag()
-        rgba8 = viewer.render_rgba8()
+        rgba8 = render_one()
+        if not lead:
+            continue
         if animate is not None:
             animate.add(rgba8)
         else:
             out = (args.output.replace(".png", "") + f"_{f:04d}.png"
                    if args.frames > 1 else args.output)
             write_png(out, rgba8)
+    if not lead:
+        return 0
     if animate is not None and not animate.write(args.output):
         print(f"Failed to write {args.output}", file=sys.stderr)
         return 1

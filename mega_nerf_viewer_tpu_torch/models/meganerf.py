@@ -21,9 +21,11 @@ Container contract (reference ``cuda_renderer.cpp:518-543``):
 Cluster id for a point is a 2-D cell over (y, z):
 ``g1 * grid_dim[1] + g2`` (reference ``rt_core.cuh:541-549``).
 
-A container whose graph does not convert raises ``NotImplementedError``
-(the JAX package falls back to eager TorchScript there; that fallback is
-not ported yet).
+A container whose graph does not convert falls back to eager TorchScript
+(``meganerf.py:434-456``): its frozen submodules run on the model's device
+through :meth:`MegaNeRFModel.query`, the cluster-sorted loop of the
+reference's ``query_submodules``, and guided sampling takes the host
+reconstruction path (``ops/guided.py``).
 """
 
 from __future__ import annotations
@@ -169,6 +171,52 @@ def mlp_forward_chunked(params: MLPParams, x_al: torch.Tensor,
     return h.reshape(nb * chunk, -1)
 
 
+def mlp_forward_grouped(params: MLPParams, sorted_x: torch.Tensor,
+                        group_sizes) -> torch.Tensor:
+    """Grouped MLP over cluster-sorted samples (``meganerf.py:84-116``), the
+    ``ragged_dot`` reference: each layer multiplies each cluster's
+    contiguous segment by that cluster's bias-augmented weights ``[w; b]``
+    (the activations gain a ones column).  ``group_sizes`` [n_clusters]
+    are read on the host; rows past their sum come out 0, as
+    ``ragged_dot`` leaves them.  Returns f32 [n, out_dim] in the sorted
+    order."""
+    sizes = [int(g) for g in torch.as_tensor(group_sizes).tolist()]
+    n = sorted_x.shape[0]
+    h = sorted_x
+    x0 = sorted_x
+    L = params.n_layers
+    with _f32_matmul():
+        for l in range(L):
+            if l in params.skips:
+                h = torch.cat([h, x0], dim=-1)
+            w_aug = torch.cat([params.weights[l],
+                               params.biases[l][:, None, :]], dim=1)
+            h_aug = torch.cat([h, h.new_ones((n, 1))], dim=-1)
+            out = h.new_zeros((n, w_aug.shape[2]))
+            off = 0
+            for c, g in enumerate(sizes):
+                out[off:off + g] = h_aug[off:off + g] @ w_aug[c]
+                off += g
+            h = torch.relu(out) if l < L - 1 else out
+    return h
+
+
+def _query_grouped(params: MLPParams, cluster_ids: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Sort-once grouped dispatch through :func:`mlp_forward_grouped`
+    (``meganerf.py:119-139``): one stable sort by cluster id, the grouped
+    products, the inverse permutation.  Samples in any order, outputs in
+    the same order.  The reference path beside :func:`query_grouped`, the
+    production dispatcher."""
+    C = params.n_clusters
+    ids = cluster_ids.long().clamp(0, C - 1)
+    perm = torch.sort(ids, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    group_sizes = torch.bincount(ids, minlength=C)
+    return mlp_forward_grouped(params, x[perm], group_sizes)[inv]
+
+
 def _query_chunked(params: MLPParams, cluster_ids: torch.Tensor,
                    x: torch.Tensor, chunk: int) -> torch.Tensor:
     """Sort-once chunked dispatch (``meganerf.py:182-228``): samples in
@@ -239,7 +287,8 @@ def cluster_ids_from_yz(y, z, grid_dim, min_position, pos_range):
 class MegaNeRFModel:
     def __init__(self, params: MLPParams, grid_dim, min_position,
                  max_position, need_viewdir: bool,
-                 need_appearance_embedding: bool):
+                 need_appearance_embedding: bool,
+                 torch_modules: Optional[list] = None):
         self.params = params
         self.grid_dim = np.asarray(grid_dim, np.int32).reshape(2)
         self.min_position = np.asarray(
@@ -249,6 +298,9 @@ class MegaNeRFModel:
         self.range = self.max_position - self.min_position
         self.need_viewdir = bool(need_viewdir)
         self.need_appearance_embedding = bool(need_appearance_embedding)
+        # the eager TorchScript fallback's frozen submodules (None when the
+        # container converted)
+        self._torch_modules = torch_modules
 
     @property
     def n_clusters(self) -> int:
@@ -266,7 +318,10 @@ class MegaNeRFModel:
     def query_device(self, cluster_ids, samples) -> torch.Tensor:
         """Grouped dispatch on the model's device (:func:`query_grouped`).
         ``cluster_ids`` [n] int, ``samples`` [n, in_dim] -> f32
-        [n, out_dim] in the input order."""
+        [n, out_dim] in the input order.  A fallback model goes through
+        :meth:`query` (``meganerf.py:299-300``)."""
+        if self._torch_modules is not None:
+            return self.query(cluster_ids, samples)
         dev = self.device
         return query_grouped(
             self.params, torch.as_tensor(cluster_ids, device=dev).reshape(-1),
@@ -287,6 +342,44 @@ class MegaNeRFModel:
                      / self.range[2] * self.grid_dim[1],
                      0, self.grid_dim[1] - 1.0).astype(np.int32)
         return (g1 * self.grid_dim[1] + g2).astype(np.int32)
+
+    # ------------------------------------------------------------------
+    def _forward_chunk(self, cluster: int, x: torch.Tensor) -> torch.Tensor:
+        """One cluster's MLP on ``x`` (``meganerf.py:327-339``): the frozen
+        TorchScript submodule of a fallback model, else :func:`mlp_forward`."""
+        if self._torch_modules is not None:
+            with torch.inference_mode():
+                return self._torch_modules[cluster](x, False).float()
+        return mlp_forward(self.params, cluster, x)
+
+    def query(self, cluster_ids, samples, nerf_batch_size: int = 1024,
+              batch_mult: int = 1) -> torch.Tensor:
+        """Cluster-sorted chunked inference (``meganerf.py:341-378``), the
+        loop of the reference's ``query_submodules``
+        (``cuda_renderer.cpp:165-203``): sort the samples by cluster on the
+        host, run each cluster's MLP over chunks of ``nerf_batch_size *
+        batch_mult``, scatter the results back to the input order.  JAX
+        pads each chunk to a power of two to bound its compiles; eager
+        PyTorch has none to bound, and rows are independent, so chunks go
+        as they are.  Returns f32 [n, out_dim] on the model's device."""
+        dev = self.device
+        ids = np.asarray(cluster_ids.cpu() if isinstance(
+            cluster_ids, torch.Tensor) else cluster_ids).reshape(-1)
+        x = torch.as_tensor(samples, dtype=torch.float32, device=dev)
+        n = x.shape[0]
+        out = torch.zeros((n, self.output_dim), dtype=torch.float32,
+                          device=dev)
+        if n == 0:
+            return out
+        order = np.argsort(ids, kind="stable")
+        uniq, starts = np.unique(ids[order], return_index=True)
+        ends = np.append(starts[1:], n)
+        batch = max(1, nerf_batch_size * batch_mult)
+        for cluster, s, e in zip(uniq, starts, ends):
+            for off in range(s, e, batch):
+                idx = torch.from_numpy(order[off:min(off + batch, e)]).to(dev)
+                out[idx] = self._forward_chunk(int(cluster), x[idx])
+        return out
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -320,9 +413,12 @@ class MegaNeRFModel:
     def from_torchscript(container_path: str, verify: bool = True,
                          device=None) -> "MegaNeRFModel":
         """Load and convert a TorchScript Mega-NeRF container (reference
-        ``Impl::load_model``, cuda_renderer.cpp:518-543).  Raises
-        ``NotImplementedError`` when the submodules are not a Linear/ReLU
-        stack (with skips) that replays within 1e-4 of their forward."""
+        ``Impl::load_model``, cuda_renderer.cpp:518-543).  Submodules that
+        are not a Linear/ReLU stack (with skips) replaying within 1e-4 of
+        their forward fall back to eager TorchScript
+        (``meganerf.py:434-456``): they are frozen on the model's device and
+        run through :meth:`query`; the placeholder ``params`` carry the
+        output width that one probe forward reads."""
         device = resolve_device(device)
         container = torch.jit.load(str(container_path), map_location="cpu")
         n = int(container.centroids.shape[0])
@@ -334,17 +430,21 @@ class MegaNeRFModel:
             m.eval()
             modules.append(m)
         in_dim = 3 + (3 if need_viewdir else 0) + (1 if need_appearance else 0)
+        grid = (container.grid_dim.numpy(), container.min_position.numpy(),
+                container.max_position.numpy())
+        # the parameters are read before torch.jit.freeze folds them into
+        # the graph (meganerf.py:427-429)
         params = _convert_modules(modules, in_dim, verify=verify)
-        if params is None:
-            raise NotImplementedError(
-                f"{container_path}: the submodules do not convert to a "
-                f"Linear/ReLU stack; the eager TorchScript fallback is not "
-                f"ported yet")
-        return MegaNeRFModel(params.to(device),
-                             container.grid_dim.numpy(),
-                             container.min_position.numpy(),
-                             container.max_position.numpy(),
-                             need_viewdir, need_appearance)
+        if params is not None:
+            return MegaNeRFModel(params.to(device), *grid, need_viewdir,
+                                 need_appearance)
+        out_dim = _probe_output_dim(modules[0], in_dim)
+        frozen = [torch.jit.freeze(m.to(device)) if isinstance(
+            m, torch.jit.ScriptModule) else m.to(device) for m in modules]
+        return MegaNeRFModel(_dummy_params(len(modules), in_dim, out_dim,
+                                           device),
+                             *grid, need_viewdir, need_appearance,
+                             torch_modules=frozen)
 
 
 def model_from_numpy(weights, biases, skips, grid_dim, min_position,
@@ -357,6 +457,30 @@ def model_from_numpy(weights, biases, skips, grid_dim, min_position,
     return MegaNeRFModel(params_from_numpy(weights, biases, skips, device),
                          grid_dim, min_position, max_position,
                          need_viewdir, need_appearance_embedding)
+
+
+def _probe_output_dim(module, in_dim: int) -> int:
+    """The output width of a submodule from one forward of a zero row
+    (``meganerf.py:440-449``): a fallback model's placeholder ``params``
+    must carry it, since :meth:`MegaNeRFModel.query` sizes its result by
+    ``output_dim``."""
+    probe = torch.zeros(1, in_dim)
+    with torch.inference_mode():
+        try:
+            y = module(probe, False)
+        except Exception:      # a forward that takes the samples alone
+            y = module(probe)
+    return int(y.shape[-1])
+
+
+def _dummy_params(n_clusters: int, in_dim: int, out_dim: int = 4,
+                  device=None) -> MLPParams:
+    """One zero layer of the right widths (``meganerf.py:553-557``): the
+    placeholder weights of a fallback model."""
+    device = resolve_device(device)
+    return MLPParams(
+        [torch.zeros((n_clusters, in_dim, out_dim), device=device)],
+        [torch.zeros((n_clusters, out_dim), device=device)])
 
 
 def _convert_modules(modules, in_dim: int,

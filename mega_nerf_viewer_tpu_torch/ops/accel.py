@@ -566,7 +566,9 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     with copies of the last ray.  ``group`` > 1 asserts group-structured
     (perm, inv) (``order_from_hints(..., group=g)``) and unpermutes
     [R/g, 4g] rows.  ``sorted_output`` leaves the rows in ``perm`` order
-    (the composite is elementwise, so that is bit-identical).
+    (the composite is elementwise, so that is bit-identical); ``inv`` may
+    then be None when neither votes nor hints are asked for (a shard of a
+    sharded frame, whose ``perm`` holds its pixels in whole chunks).
     ``need_votes`` adds ``split_vote`` and ``sample_vote`` in pixel
     order.  ``return_hints`` adds ``steps``, ``nrec`` and ``skips`` in
     pixel order, or, as ``"packed"``, one ``hints_packed`` array in
@@ -581,7 +583,7 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     tensors) as soon as the marches are queued, before the unpermute and
     the composite."""
     dev = tree.device
-    R = inv.shape[0]
+    R = (perm if inv is None else inv).shape[0]
     n_total = sum(c for c, _ in seg_counts) * chunk_size
     pad = n_total - R
     pix = perm if not pad else torch.cat([perm, perm[-1:].expand(pad)])

@@ -17,6 +17,13 @@ mode, ``cuda_renderer.cpp:107-139``):
   * :func:`collect_and_query_fast` — collect, reconstruct and the grouped
     MLP query (``models.meganerf.query_grouped``), unordered, in a
     hint-sorted ray order, or segmented by per-class record budgets.
+  * :func:`reconstruct_samples` — the same rebuild over every padded slot
+    ``[R, S]`` (``guided.py:465-496``).
+  * the host reconstruction path for a model on the eager TorchScript
+    fallback (``guided.py:953-1025``), which :func:`collect_and_query_fast`
+    takes for such a model: the collect march, then the rows and cluster
+    ids of the valid samples only, the model's cluster-sorted query, and a
+    padded cache for the padded compositor.
   * :func:`composite_frame` — composites the cached MLP outputs each
     frame with the compact compositor (``ops/compact_composite.py``,
     kernel ``csrc/compact_composite.cu``): from the cached per-sample view
@@ -318,6 +325,113 @@ def _compact_reconstruct(tree: N3Tree, dirs: torch.Tensor,
     return x, cluster_ids, torch.where(valid, z, zero), ray_of_p, offs
 
 
+def reconstruct_samples(tree: N3Tree, dirs: torch.Tensor,
+                        vdirs: torch.Tensor, cen_world: torch.Tensor,
+                        t_buf: torch.Tensor, num_samples: torch.Tensor,
+                        grid_dim, min_position, pos_range,
+                        opt: RenderOptions):
+    """Full guided-sample rows and cluster ids rebuilt from the recorded
+    ``t`` over every slot (``guided.py:465-496``; ``rt_core.cuh:514-549``).
+    Returns (samples [R, S, 1+dim] f32: z, xyz, (view dir), (appearance),
+    -1 past ``num_samples``; cluster_ids [R, S] i32, of every slot)."""
+    R, S = t_buf.shape
+    dev = dirs.device
+    scale = tree.scale
+    d = dirs * scale[None, :]
+    d = d / torch.sqrt(sq_norm(d))[:, None]
+    valid = torch.arange(S, device=dev)[None, :] < num_samples[:, None]
+    tz = (t_buf[..., None] * d[:, None, :] / scale).reshape(-1, 3)
+    z = torch.sqrt(sq_norm(tz)).reshape(R, S)
+    pos = cen_world + dirs[:, None, :] * z[..., None]
+    cols = [z[..., None], pos]
+    if opt.need_viewdir:
+        # the recorded view direction is the Rodrigues-shifted one; the
+        # positions use the true direction (rt_core.cuh:530-533)
+        cols.append(vdirs[:, None, :].expand(R, S, 3))
+    if opt.appearance_embedding != -1:
+        cols.append(torch.full((R, S, 1), float(opt.appearance_embedding),
+                               dtype=torch.float32, device=dev))
+    samples = torch.cat(cols, -1)
+    samples = torch.where(valid[..., None], samples,
+                          samples.new_full((), -1.0))
+    cluster_ids = cluster_ids_from_yz(pos[..., 1], pos[..., 2], grid_dim,
+                                      min_position, pos_range)
+    return samples, cluster_ids
+
+
+def _cluster_ids_host_math(model, y: torch.Tensor,
+                           z: torch.Tensor) -> torch.Tensor:
+    """Cluster ids in the arithmetic of the JAX package's host
+    ``cluster_ids_for_points`` (``meganerf.py:314-324``): the f32
+    offset-over-range times the integer grid size promotes to f64 there,
+    so it does here, on the tensors' device."""
+    gd = [int(g) for g in model.grid_dim]
+    mp = [float(np.float32(v)) for v in model.min_position]
+    rg = [float(np.float32(v)) for v in model.range]
+
+    def cell(v, lo, r, g):
+        f = ((v - lo) / r).double() * g
+        return f.clamp(0.0, g - 1.0).to(torch.int32)
+    return cell(y, mp[1], rg[1], gd[0]) * gd[1] + cell(z, mp[2], rg[2], gd[1])
+
+
+def _collect_and_query_fast_host(tree: N3Tree, leaf_map: LeafMap, model,
+                                 camera, opt: RenderOptions,
+                                 chunk_size: int = 1 << 15,
+                                 skip_table: Optional[torch.Tensor] = None
+                                 ) -> dict:
+    """The guided invalidation for a model on the eager TorchScript
+    fallback (``guided.py:953-1025``).  The collect march records ``t``;
+    the rows and cluster ids of the valid samples are rebuilt from it
+    (the f32 math of :func:`reconstruct_samples`); the model's
+    cluster-sorted :meth:`~..models.meganerf.MegaNeRFModel.query` runs on
+    them; the results go back into a padded ``[R, S, out_dim]`` cache with
+    ``z_vals`` (-1 past ``num_samples``), which :func:`composite_frame`
+    hands to the padded compositor.  JAX rebuilds the rows in host numpy
+    because its fallback runs on the host; here they stay on the tree's
+    device.  The cache also carries ``collect_steps`` in pixel order, the
+    Viewer's next collect order.  Returns the cache dict."""
+    dev = tree.device
+    transform = torch.as_tensor(camera.transform, dtype=torch.float32,
+                                device=dev)
+    dirs, cen = screen2worlddir(camera.width, camera.height, camera.fx,
+                                camera.fy, camera.cx, camera.cy, transform)
+    R = dirs.shape[0]
+    pad = (-R) % chunk_size if chunk_size else 0
+    dirs_p = dirs if not pad else torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+    t_buf, ns, steps = collect_t_fast(tree, leaf_map, dirs_p, cen, opt,
+                                      chunk_size=chunk_size,
+                                      skip_table=skip_table,
+                                      return_steps=True)
+    t_buf, ns, steps = t_buf[:R], ns[:R], steps[:R]
+    vdirs = rodrigues(opt.rot_dirs, dirs)
+    S = t_buf.shape[1]
+    valid = torch.arange(S, device=dev)[None, :] < ns[:, None]
+    ray_i, slot_i = torch.nonzero(valid, as_tuple=True)
+    t_v = t_buf[ray_i, slot_i]
+    d = dirs * tree.scale[None, :]
+    d = d / torch.sqrt(sq_norm(d))[:, None]
+    tz = t_v[:, None] * d[ray_i] / tree.scale[None, :]
+    z_v = torch.sqrt(sq_norm(tz))
+    pos = cen[None, :] + dirs[ray_i] * z_v[:, None]
+    cols = [pos]
+    if opt.need_viewdir:
+        cols.append(vdirs[ray_i])
+    if opt.appearance_embedding != -1:
+        cols.append(torch.full((ray_i.shape[0], 1),
+                               float(opt.appearance_embedding),
+                               dtype=torch.float32, device=dev))
+    ids = _cluster_ids_host_math(model, pos[:, 1], pos[:, 2])
+    res = model.query_device(ids, torch.cat(cols, -1))
+    results = torch.zeros((R, S, model.output_dim), dtype=torch.float32,
+                          device=dev)
+    results[ray_i, slot_i] = res
+    z_vals = torch.full((R, S), -1.0, dtype=torch.float32, device=dev)
+    z_vals[ray_i, slot_i] = z_v
+    return dict(results=results, z_vals=z_vals, num_samples=ns,
+                collect_steps=steps)
+
+
 def _reconstruct_and_query(params, tree: N3Tree, dirs, vdirs, cen_world,
                            t_buf, ns, grid_dim, min_position, pos_range,
                            opt: RenderOptions, budget: int):
@@ -381,7 +495,14 @@ def collect_and_query_fast(tree: N3Tree, leaf_map: LeafMap, model, camera,
     ``budget_hint_next``, and as they apply ``num_samples_sorted``,
     ``order_perm``, ``order_inv``, ``segments``, ``vdirs_c``,
     ``vdirs_sig``.
+
+    A model on the eager TorchScript fallback takes the host
+    reconstruction path instead (``guided.py:782-785``), with its padded
+    cache; ``order``, ``segments`` and ``budget_hint`` do not apply there.
     """
+    if getattr(model, "_torch_modules", None) is not None:
+        return _collect_and_query_fast_host(tree, leaf_map, model, camera,
+                                            opt, chunk_size, skip_table)
     dev = tree.device
     transform = torch.as_tensor(camera.transform, dtype=torch.float32,
                                 device=dev)

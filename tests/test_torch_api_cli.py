@@ -289,11 +289,10 @@ def test_cli_apng_depth_and_save_tree(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    """Each mode the port leaves out raises NotImplementedError naming its
-    ROADMAP item; none renders another way.  Only ``--sharded`` (queue 1,
-    item 10) is left."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PCLI.main(["--sharded", "--device", "cpu"])
+    """The port leaves no CLI mode out any more (``--sharded`` is ported;
+    ``test_torch_parallel.py`` holds it against the JAX CLI's); what is
+    left here: a missing tree file fails with exit code 1, and the device
+    defaults to the card."""
     assert PCLI.main([str(tmp_path / "missing.npz"), "--device", "cpu"]) == 1
     assert PCLI.build_parser().parse_args([]).device is None
 

@@ -38,7 +38,17 @@ def test_import_leaves_out_jax():
             "mega_nerf_viewer_tpu_torch.ops.oracle, "
             "mega_nerf_viewer_tpu_torch.probes.gather_probe, "
             "mega_nerf_viewer_tpu_torch.probes.prepass_breakdown, "
-            "mega_nerf_viewer_tpu_torch.probes.exact_breakdown\n"
+            "mega_nerf_viewer_tpu_torch.probes.exact_breakdown, "
+            "mega_nerf_viewer_tpu_torch.parallel, "
+            "mega_nerf_viewer_tpu_torch.parallel.mesh, "
+            "mega_nerf_viewer_tpu_torch.parallel.render, "
+            "mega_nerf_viewer_tpu_torch.parallel.model, "
+            "mega_nerf_viewer_tpu_torch.parallel.step, "
+            "mega_nerf_viewer_tpu_torch.parallel.guided, "
+            "mega_nerf_viewer_tpu_torch.parallel.motion, "
+            "mega_nerf_viewer_tpu_torch.parallel.multihost\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_parallel_worker\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
             "or m.startswith('mega_nerf_viewer_tpu.')]\n"
@@ -56,6 +66,7 @@ def _sources():
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     out.append(os.path.join(REPO, "chip_smoke.py"))
+    out.append(os.path.join(REPO, "tests", "torch_parallel_worker.py"))
     return out
 
 
@@ -77,7 +88,16 @@ def test_no_source_imports_jax():
             "version.py", os.path.join("ops", "oracle.py"),
             os.path.join("probes", "gather_probe.py"),
             os.path.join("probes", "prepass_breakdown.py"),
-            os.path.join("probes", "exact_breakdown.py")} <= names
+            os.path.join("probes", "exact_breakdown.py"),
+            os.path.join("parallel", "__init__.py"),
+            os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "render.py"),
+            os.path.join("parallel", "model.py"),
+            os.path.join("parallel", "step.py"),
+            os.path.join("parallel", "guided.py"),
+            os.path.join("parallel", "motion.py"),
+            os.path.join("parallel", "multihost.py"),
+            os.path.join("..", "tests", "torch_parallel_worker.py")} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -94,9 +114,35 @@ def test_import_pattern_is_strict():
     assert not IMPORT_RE.search("# the jax package is the reference")
 
 
-def _entry_points():
+def _fallback_container(tmp_path):
+    """A container whose sine activation does not convert."""
+    class Sine(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.l0 = torch.nn.Linear(3, 4)
+
+        def forward(self, x, sigma_only: bool = False):
+            return torch.sin(self.l0(x))
+
+    class Container(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.grid_dim = torch.tensor([1, 1], dtype=torch.int32)
+            self.min_position = torch.zeros(3)
+            self.max_position = torch.ones(3)
+            self.centroids = torch.zeros(1, 3)
+            self.need_viewdir = False
+            self.need_appearance_embedding = False
+            self.sub_module_0 = torch.jit.script(Sine())
+
+    path = str(tmp_path / "sine.pt")
+    torch.jit.save(torch.jit.script(Container()), path)
+    return path
+
+
+def _entry_points(tmp_path):
     import mega_nerf_viewer_tpu_torch as P
-    from mega_nerf_viewer_tpu_torch import api, cli
+    from mega_nerf_viewer_tpu_torch import api, cli, parallel
     from mega_nerf_viewer_tpu_torch.ops import accel
     from mega_nerf_viewer_tpu_torch.probes import exact_breakdown, \
         gather_probe, prepass_breakdown
@@ -121,14 +167,44 @@ def _entry_points():
         lambda: P.WebViewer(P.Viewer(), port=0),
         lambda: cli.main([fixture, "-w", "8", "--height", "8", "--serve",
                           "0"]),
+        lambda: parallel.default_mesh(),
+        lambda: parallel.make_mesh((1,), (parallel.RAY_AXIS,)),
+        lambda: parallel.multihost.global_mesh(),
+        lambda: parallel.multihost.initialize("127.0.0.1:1", 1, 0),
+        lambda: parallel.make_frame_refine_step(parallel.default_mesh(),
+                                                P.RenderOptions()),
+        lambda: cli.main([fixture, "-w", "8", "--height", "8",
+                          "--sharded"]),
+        lambda: P.MegaNeRFModel.from_torchscript(
+            _fallback_container(tmp_path)),
     ]
 
 
-@pytest.mark.parametrize("i", range(16))
-def test_entry_point_without_device_needs_a_card(i, monkeypatch):
+@pytest.mark.parametrize("i", range(23))
+def test_entry_point_without_device_needs_a_card(i, monkeypatch, tmp_path):
+    import torch.distributed as dist
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_points()[i]()
+        _entry_points(tmp_path)[i]()
+    assert not dist.is_initialized()      # no group was started
+
+
+def test_nccl_asked_for_is_never_gloo(monkeypatch):
+    """Asking for NCCL where it is missing raises and starts no group: no
+    helper swaps in gloo."""
+    import torch.distributed as dist
+    from mega_nerf_viewer_tpu_torch.parallel import mesh
+    started = []
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: started.append((a, kw)))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    for dev in ("cpu", "cuda:0"):
+        with pytest.raises(RuntimeError, match="NCCL was asked for"):
+            mesh.init_world(device=dev, backend="nccl")
+    with pytest.raises(RuntimeError, match="NCCL was asked for"):
+        mesh.init_world(device="cuda:0")       # the card's default
+    assert not started and not dist.is_initialized()
 
 
 def test_kernels_refuse_cpu_tensors():

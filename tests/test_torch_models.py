@@ -211,32 +211,169 @@ def _save_container(tmp_path, sub_cls, name):
     return path
 
 
+class Weird(nn.Module):
+    """A graph that does not replay as Linear/ReLU (a sine activation)."""
+
+    def __init__(self, in_dim=3, out_dim=5):
+        super().__init__()
+        self.l0 = nn.Linear(in_dim, 8)
+        self.l1 = nn.Linear(8, out_dim)
+
+    def forward(self, x, sigma_only: bool = False):
+        return self.l1(torch.sin(self.l0(x)))
+
+
+class Odd(nn.Module):
+    """A width no skip rule explains."""
+
+    def __init__(self, in_dim=3, out_dim=5):
+        super().__init__()
+        self.l0 = nn.Linear(in_dim, 8)
+        self.l1 = nn.Linear(9, out_dim)
+
+    def forward(self, x, sigma_only: bool = False):
+        h = torch.relu(self.l0(x))
+        return self.l1(torch.cat([h, x[:, :1]], -1))
+
+
 def test_non_convertible_container_raises(tmp_path):
-    """A graph that does not replay as Linear/ReLU raises (the eager
-    TorchScript fallback is not ported)."""
-    class Weird(nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.l0 = nn.Linear(3, 8)
-            self.l1 = nn.Linear(8, 5)
-
-        def forward(self, x, sigma_only: bool = False):
-            return self.l1(torch.sin(self.l0(x)))
-
-    class Odd(nn.Module):           # a width no skip rule explains
-        def __init__(self):
-            super().__init__()
-            self.l0 = nn.Linear(3, 8)
-            self.l1 = nn.Linear(9, 5)
-
-        def forward(self, x, sigma_only: bool = False):
-            h = torch.relu(self.l0(x))
-            return self.l1(torch.cat([h, x[:, :1]], -1))
-
+    """A container whose graph does not replay as Linear/ReLU loads through
+    the eager TorchScript fallback and matches its eager forward (the name
+    is kept from when the port refused such a container)."""
+    x = np.random.RandomState(5).randn(40, 3).astype(np.float32)
     for cls in (Weird, Odd):
         path = _save_container(tmp_path, cls, cls.__name__ + ".pt")
-        with pytest.raises(NotImplementedError, match="fallback"):
-            PModel.from_torchscript(path, device="cpu")
+        m = PModel.from_torchscript(path, device="cpu")
+        assert m._torch_modules is not None and m.output_dim == 5
+        with torch.inference_mode():
+            want = torch.jit.load(path).sub_module_0(
+                torch.from_numpy(x), False).numpy()
+        got = m.query_device(np.zeros(40, np.int32), x).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _fallback_container(tmp_path, cls, n=4, out_dim=5, viewdir=True,
+                        name="fallback.pt"):
+    """A 2x2-cluster container of ``cls`` submodules (seeded)."""
+    in_dim = 6 if viewdir else 3
+
+    class Container(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.grid_dim = torch.tensor([2, n // 2], dtype=torch.int32)
+            self.min_position = torch.tensor([-1.0, -1.0, -1.0])
+            self.max_position = torch.tensor([1.0, 1.0, 1.0])
+            self.centroids = torch.zeros(n, 3)
+            self.need_viewdir = viewdir
+            self.need_appearance_embedding = False
+            for i in range(n):
+                setattr(self, f"sub_module_{i}",
+                        torch.jit.script(cls(in_dim, out_dim)))
+
+    torch.manual_seed(3)
+    path = str(tmp_path / name)
+    torch.jit.save(torch.jit.script(Container()), path)
+    return path
+
+
+@pytest.mark.parametrize("cls", [Weird, Odd])
+def test_fallback_matches_eager_forward_and_jax(tmp_path, cls):
+    """The fallback's query on random samples and clusters: within 1e-5 of
+    each submodule's eager forward and of the JAX package's fallback."""
+    path = _fallback_container(tmp_path, cls, name=cls.__name__ + ".pt")
+    p = PModel.from_torchscript(path, device="cpu")
+    j = JModel.from_torchscript(path)
+    assert j._torch_modules is not None
+    x, ids = _inputs(333, 6, 4, seed=9)
+    got = p.query(ids, x).numpy()
+    container = torch.jit.load(path)
+    for c in range(4):
+        with torch.inference_mode():
+            want = getattr(container, f"sub_module_{c}")(
+                torch.from_numpy(x[ids == c]), False).numpy()
+        np.testing.assert_allclose(got[ids == c], want, rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(j.query(ids, x)), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(p.query_device(ids, x).numpy(), got)
+    for k in ("grid_dim", "min_position", "max_position"):
+        np.testing.assert_array_equal(getattr(p, k), getattr(j, k))
+
+
+@pytest.mark.parametrize("out_dim", [4, 10])
+def test_fallback_output_width_probe(tmp_path, out_dim):
+    """The placeholder params carry the width one probe forward reads, for
+    a module emitting data_dim+1 other than 4 too (JAX's probe)."""
+    path = _fallback_container(tmp_path, Weird, out_dim=out_dim,
+                               viewdir=False)
+    p = PModel.from_torchscript(path, device="cpu")
+    j = JModel.from_torchscript(path)
+    assert p.output_dim == j.output_dim == out_dim
+    assert p.params.input_dim == 3 and p.params.n_layers == 1
+    assert not any(bool(w.any()) for w in p.params.weights)
+    x, ids = _inputs(50, 3, 4, seed=1)
+    assert tuple(p.query(ids, x).shape) == (50, out_dim)
+
+
+@pytest.mark.parametrize("batch", [1024, 7])
+def test_query_equals_query_device(batch):
+    """The cluster-sorted host loop against the grouped dispatch on a
+    converted model, with chunks that split clusters (batch 7)."""
+    p = PModel.synthetic(data_dim=4, n_clusters=8, grid_dim=(2, 4),
+                         hidden=32, n_layers=4, need_viewdir=True, seed=6,
+                         device="cpu")
+    x, ids = _inputs(900, 6, 8, seed=4)
+    got = p.query(ids, x, nerf_batch_size=batch)
+    want = p.query_device(ids, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    j = JModel.synthetic(data_dim=4, n_clusters=8, grid_dim=(2, 4),
+                         hidden=32, n_layers=4, need_viewdir=True, seed=6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j.query(ids, x)),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_query_on_empty_input():
+    p = PModel.synthetic(data_dim=4, n_clusters=4, device="cpu")
+    out = p.query(np.zeros(0, np.int32), np.zeros((0, 3), np.float32))
+    assert tuple(out.shape) == (0, 5) and out.dtype == torch.float32
+    j = JModel.synthetic(data_dim=4, n_clusters=4)
+    assert np.asarray(j.query(np.zeros(0, np.int32),
+                              np.zeros((0, 3), np.float32))).shape == (0, 5)
+
+
+@pytest.mark.parametrize("skips", [(), (2,)])
+def test_query_grouped_reference_matches_jax(skips):
+    """The ragged_dot reference, ``_query_grouped`` and
+    ``mlp_forward_grouped``, with uneven and empty clusters, with and
+    without a skip layer."""
+    rng = np.random.RandomState(8 + len(skips))
+    C, in_dim, h = 5, 4, 16
+    dims = [(in_dim, h), (h, h), (h + (in_dim if skips else 0), h), (h, 6)]
+    w = [(rng.randn(C, a, b) * 0.3).astype(np.float32) for a, b in dims]
+    b = [(rng.randn(C, o) * 0.1).astype(np.float32) for _, o in dims]
+    jp = JM.MLPParams(weights=[jnp.asarray(a) for a in w],
+                      biases=[jnp.asarray(a) for a in b], skips=skips)
+    pp = PM.params_from_numpy(w, b, skips, device="cpu")
+    n = 600
+    x = rng.randn(n, in_dim).astype(np.float32)
+    ids = rng.choice([0, 1, 3, 4], size=n,
+                     p=[0.6, 0.1, 0.25, 0.05]).astype(np.int32)
+    want = np.asarray(JM._query_grouped(jp, jnp.asarray(ids),
+                                        jnp.asarray(x)))
+    got = PM._query_grouped(pp, torch.as_tensor(ids), torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    order = np.argsort(ids, kind="stable")
+    sizes = np.bincount(ids, minlength=C).astype(np.int32)
+    want_s = np.asarray(JM.mlp_forward_grouped(jp, jnp.asarray(x[order]),
+                                               jnp.asarray(sizes)))
+    got_s = PM.mlp_forward_grouped(pp, torch.as_tensor(x[order]),
+                                   torch.as_tensor(sizes))
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=RTOL, atol=ATOL)
+    # rows past the groups come out 0, as ragged_dot leaves them
+    short = PM.mlp_forward_grouped(pp, torch.as_tensor(x[order]),
+                                   torch.as_tensor(sizes - (sizes > 0)))
+    assert not short[-1].any()
 
 
 def test_f32_matmul_leaves_the_global_setting():
