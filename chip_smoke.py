@@ -75,7 +75,17 @@ shapes of the main paths, and drives both paths of the port:
   subprocess; then the same sharded paths at a world of two, two gloo
   processes sharing the card (this script started again with
   ``--sharded-rank``), gloo's collectives on CUDA tensors checked first,
-  both ranks' outputs bit-equal.
+  both ranks' outputs bit-equal;
+* the Viewer's execution switches (phase 22), each turned off against the
+  default at 1080p on the scenes of phases 15 and 16: ``use_prepass`` (a
+  parked frame, bit-equal, kernel B not launched), ``use_fast_path`` (a
+  parked frame through kernel E, guided stops through kernels F and G),
+  ``use_device_order`` (phase 15's orbit under sync, each pose against a
+  fresh frame, redos counted), ``use_guided_segments`` (stops in one
+  ordered collect launch, equal to the segmented stops),
+  ``use_dynamic_knobs`` and ``use_pallas_composite`` (frames equal to the
+  default), and foveation at f = 2 with the prepass off (B not launched in
+  the subs).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -479,15 +489,17 @@ def main():
     rest_launches = rest_phase(P, kernels)
     torch.cuda.empty_cache()
     sharded_launches = sharded_phase(P, kernels, dev)
+    torch.cuda.empty_cache()
+    switches_launches = switches_phase(P, kernels)
 
-    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20 and 21),
-    # summed over the paths for the kernels that several paths run; kernel
-    # H is on no path (0)
+    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21 and
+    # 22), summed over the paths for the kernels that several paths run;
+    # kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
-            rest_launches, sharded_launches))
+            rest_launches, sharded_launches, switches_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -3395,6 +3407,269 @@ def sharded_phase(P, kernels, dev):
         f"launches {launches}")
     return launches
 
+
+# ----------------------------------------------------------------------
+# Phase 22: the Viewer's execution switches
+# ----------------------------------------------------------------------
+def switch_row(kernels, what, names):
+    """The counts of a switch's path since the last reset, each of
+    ``names`` launched, printed."""
+    launches = read_launches(kernels, names, f"phase 22 {what}")
+    log(f"phase 22 {what}: launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
+def in_turns(kernels, default, switched):
+    """The default's and the switch's calls in turns (default, switch,
+    switch, default), three calls a turn timed by CUDA events, the
+    default's calls uncounted.  Returns (the switch's last result, the
+    default's and the switch's median ms, the switch's six runs)."""
+    runs = {default: [], switched: []}
+    out = None
+    for fn in (default, switched, switched, default):
+        if fn is default:
+            r = uncounted(kernels, lambda: event_ms(fn))[2]
+        else:
+            out, _, r = event_ms(fn)
+        runs[fn] += r
+
+    def med(r):
+        return (sorted(r)[2] + sorted(r)[3]) / 2
+    return (out, med(runs[default]), med(runs[switched]),
+            [round(r, 3) for r in runs[switched]])
+
+
+def switches_voxel(P, kernels, tree, total):
+    """The voxel scene's rows: the prepass off (a parked frame), the fast
+    path off (a parked frame), use_dynamic_knobs off, the device order off
+    (phase 15's 12-pose orbit under sync) and foveation at f = 2 with the
+    prepass off.  Each row's path is counted from 0."""
+    from mega_nerf_viewer_tpu_torch.ops import accel
+
+    def viewer(fov=1, **switches):
+        v = (fov_viewer(P, tree, fov) if fov > 1 else P.Viewer(
+            tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL)))
+        for k, val in switches.items():
+            setattr(v, k, val)
+        v.render(fetch=False)             # the hint frame
+        v.render(fetch=False)
+        return v
+
+    base = uncounted(kernels, viewer)
+    ref = uncounted(kernels, lambda: base.render(fetch=False))
+
+    def frame(v):
+        return lambda: v.render(fetch=False)
+
+    kernels.reset_launch_counts()
+    v = viewer(use_prepass=False)
+    img, ms_ref, ms, runs = in_turns(kernels, frame(base), frame(v))
+    run = switch_row(kernels, "use_prepass off, parked frame", ("march",))
+    check(run["skip_prepass"] == 0, "kernel B launched with the prepass off")
+    check(torch.equal(img, ref), "the prepass-off frame is not bit-equal "
+          "to the default frame")
+    add_launches(total, run)
+    log(f"phase 22 use_prepass off: parked {ms:.3f} ms/frame beside the "
+        f"default {ms_ref:.3f} (CUDA events in turns, medians of 6; runs "
+        f"{runs}); bit-equal to the default frame")
+    del v
+
+    kernels.reset_launch_counts()
+    v = viewer(use_fast_path=False)
+    img, ms_ref, ms, runs = in_turns(kernels, frame(base), frame(v))
+    run = switch_row(kernels, "use_fast_path off, parked frame",
+                     ("exact_march",))
+    check(run["march"] == 0 and v._leaf_map is None,
+          "the fast-path-off frame marched the leaf map")
+    err = float((img - ref).abs().max())
+    check(err <= 1e-5, f"the exact frame differs from the default by {err}")
+    add_launches(total, run)
+    log(f"phase 22 use_fast_path off: parked {ms:.3f} ms/frame (kernel E) "
+        f"beside the default {ms_ref:.3f} (CUDA events in turns, medians of "
+        f"6; runs {runs}); against the default frame max abs diff "
+        f"{err:.3e}")
+    del v
+
+    def knobs(on):
+        def fn():
+            base.use_dynamic_knobs = on
+            return base.render(fetch=False)
+        return fn
+    kernels.reset_launch_counts()
+    img, ms_ref, ms, runs = in_turns(kernels, knobs(True), knobs(False))
+    base.use_dynamic_knobs = True
+    run = switch_row(kernels, "use_dynamic_knobs off, parked frame",
+                     ("skip_prepass", "march"))
+    check(torch.equal(img, ref), "use_dynamic_knobs changed the frame")
+    add_launches(total, run)
+    log(f"phase 22 use_dynamic_knobs off: {ms:.3f} ms/frame beside "
+        f"{ms_ref:.3f} (CUDA events in turns, medians of 6; runs {runs}), "
+        f"equal to the default frame")
+
+    # phase 15's orbit, both ways in turns pose by pose (host clock), each
+    # pose against a fresh frame
+    host_orders = [0]
+    orig = accel.order_from_hints
+
+    def counting(*a, **kw):
+        host_orders[0] += 1
+        return orig(*a, **kw)
+
+    def pose(v):
+        n = host_orders[0]
+        img, ms = timed(lambda: v.render(fetch=False))
+        fresh = uncounted(kernels, lambda: fresh_frame(
+            P, tree, v._leaf_map, v.camera, v.options, v.fast_chunk_size,
+            v._skip_table))
+        err = float((img - fresh).abs().max())
+        check(err <= 1e-6, f"an orbit pose differs from a fresh frame by "
+              f"{err}")
+        return ms, host_orders[0] - n, err
+
+    kernels.reset_launch_counts()
+    v = viewer(use_device_order=False)
+    with_order, without = [], []
+    accel.order_from_hints = counting
+    try:
+        for i in range(12):
+            orbit_step(base.camera, 12)
+            orbit_step(v.camera, 12)
+            for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+                if which == 0:
+                    with_order.append(uncounted(kernels, lambda: pose(base)))
+                else:
+                    without.append(pose(v))
+    finally:
+        accel.order_from_hints = orig
+    run = switch_row(kernels, "use_device_order off, 12-pose orbit",
+                     ("skip_prepass", "march"))
+    check(v._hints_packed is None, "packed hints with the device order off")
+    add_launches(total, run)
+
+    def med(poses):
+        return sorted(p[0] for p in poses)[len(poses) // 2]
+    log(f"phase 22 use_device_order off: orbit {med(without):.3f} ms/pose "
+        f"(host clock, median of 12), {sum(p[1] for p in without)} sync "
+        f"redos, beside the device order's {med(with_order):.3f} ms/pose "
+        f"(in turns pose by pose); each pose against a fresh frame max abs "
+        f"diff {max(p[2] for p in without):.3e}; poses (ms, redos) "
+        f"{[(round(p[0], 3), p[1]) for p in without]}; the device order's "
+        f"{[round(p[0], 3) for p in with_order]}")
+    del v, base
+
+    fov = uncounted(kernels, lambda: viewer(fov=2))
+    ref = uncounted(kernels, lambda: fov.render(fetch=False))
+    kernels.reset_launch_counts()
+    v = viewer(fov=2, use_prepass=False)
+    img, ms_ref, ms, runs = in_turns(kernels, frame(fov), frame(v))
+    run = switch_row(kernels, "foveated f=2, use_prepass off", ("march",))
+    check(run["skip_prepass"] == 0, "kernel B launched in the subs")
+    check(v._fov_sub is not None
+          and not any(s.use_prepass for s in v._fov_sub),
+          "the subs did not take use_prepass")
+    check(torch.equal(img, ref), "the foveated prepass-off frame differs")
+    add_launches(total, run)
+    log(f"phase 22 foveated f=2, use_prepass off: {ms:.3f} ms/frame beside "
+        f"the prepass's {ms_ref:.3f} (CUDA events in turns, medians of 6; "
+        f"runs {runs}); bit-equal")
+
+
+def switches_guided(P, kernels, total):
+    """The guided scene's rows (phase 16's scene and model): the guided
+    segments off (stops in turns with the default's, then a reuse frame),
+    the fast path off (stops in turns) and use_pallas_composite=False.
+    Each row's path is counted from 0."""
+    tree = P.shell_tree(depth=8, basis_dim=1, sigma_inside=400.0,
+                        max_capacity=2 * SHELL_CHUNKS)
+    model = P.MegaNeRFModel.synthetic(data_dim=int(tree.data_dim), seed=0,
+                                      **GUIDED_MODEL)
+    opt = P.RenderOptions(max_guided_samples=GUIDED_S, need_viewdir=True,
+                          use_guided_sampling=True)
+
+    def viewer(**switches):
+        v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL),
+                     options=opt, model=model)
+        for k, val in switches.items():
+            setattr(v, k, val)
+        v.render(fetch=False)
+        return v
+
+    def stop(v):
+        def fn():
+            v.key_event("W")
+            return v.render(fetch=False)
+        return fn
+
+    base = uncounted(kernels, viewer)
+    kernels.reset_launch_counts()
+    v = viewer(use_guided_segments=False)
+    n = kernels.LAUNCHES["collect"]
+    img, ms_ref, ms, runs = in_turns(kernels, stop(base), stop(v))
+    check(kernels.LAUNCHES["collect"] == n + 6,
+          "an ordered stop did not take one collect launch")
+    ref = base._guided_img_cache[1]
+    reuse_ref = uncounted(kernels, lambda: event_ms(
+        lambda: base.render(fetch=False)))[1]
+    _, reuse_ms, _ = event_ms(lambda: v.render(fetch=False))
+    run = switch_row(kernels, "use_guided_segments off, stops",
+                     ("collect", "compact_composite"))
+    check(v._guided_segments is None, "a ladder with the segments off")
+    err = float((img - ref).abs().max())
+    check(err <= 1e-5, f"the ordered stop differs from the segmented stop "
+          f"by {err}")
+    add_launches(total, run)
+    log(f"phase 22 use_guided_segments off: stop {ms:.3f} ms (one ordered "
+        f"collect launch) beside the segmented {ms_ref:.3f} (CUDA events in "
+        f"turns, medians of 6; runs {runs}); reuse frame {reuse_ms:.3f} "
+        f"beside {reuse_ref:.3f}; against the segmented stop max abs diff "
+        f"{err:.3e}")
+    del v
+
+    kernels.reset_launch_counts()
+    base.use_pallas_composite = False
+    img, ms = timed(lambda: base.render(fetch=False))
+    run = switch_row(kernels, "use_pallas_composite=False, composite",
+                     ("compact_composite",))
+    check(torch.equal(img, ref), "use_pallas_composite changed the frame")
+    add_launches(total, run)
+    log(f"phase 22 use_pallas_composite=False: the composite again through "
+        f"kernel D, {ms:.3f} ms (host clock), equal to the default frame")
+    del base
+
+    base = uncounted(kernels, viewer)
+    kernels.reset_launch_counts()
+    v = viewer(use_fast_path=False)
+    img, ms_ref, ms, runs = in_turns(kernels, stop(base), stop(v))
+    run = switch_row(kernels, "use_fast_path off, stops",
+                     ("exact_collect", "padded_composite"))
+    check(run["collect"] == 0, "kernel C launched with the fast path off")
+    check(bool(torch.isfinite(img).all()), "non-finite exact guided stop")
+    err = float((img - base._guided_img_cache[1]).abs().max())
+    check(err <= 1e-5, f"the exact guided stop differs from the leaf map's "
+          f"by {err}")
+    add_launches(total, run)
+    log(f"phase 22 use_fast_path off: guided stop {ms:.3f} ms (kernels F "
+        f"and G) beside the leaf map's {ms_ref:.3f} (CUDA events in turns, "
+        f"medians of 6; runs {runs}); against the leaf map's stop max abs "
+        f"diff {err:.3e}")
+
+
+def switches_phase(P, kernels):
+    """Phase 22: the Viewer's execution switches at 1080p on phase 15's
+    voxel scene and phase 16's guided scene, each switched off against the
+    default (viewer.py:101-197).  Returns the launch counts of the
+    switches' paths, summed."""
+    t0 = time.perf_counter()
+    total = {}
+    tree = P.shell_tree(depth=8, basis_dim=9, sigma_inside=400.0)
+    switches_voxel(P, kernels, tree, total)
+    del tree
+    torch.cuda.empty_cache()
+    switches_guided(P, kernels, total)
+    torch.cuda.empty_cache()
+    log(f"phase 22 in {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -46,14 +46,28 @@ overlays on the host (``utils/wireframe.py``, ``utils/mesh.py``) and
 composite the frame against them through the exact renderer, the overlay
 depth bounding each ray's march.
 
-The JAX ``use_dynamic_knobs`` (traced knobs that spare
-a recompile) means nothing without jit and is left out, as is
-``use_pallas_composite``: every guided frame goes through
-``guided.composite_frame``.  So are the JAX switches ``use_fast_path``,
-``use_prepass``, ``use_device_order`` and ``use_guided_segments``, which
-nothing turns off: a binary tree always takes the leaf-map path, a frame
-without votes the prepass, ray orders are always built on the device, and
-the guided collect is segmented once budgets exist.
+The JAX Viewer's execution switches (``viewer.py:101-197``) route frames
+the same way here, with the same defaults:
+
+  * ``use_fast_path`` (True): off, every frame of a binary tree takes the
+    exact renderer (kernel E) and every guided invalidation the exact
+    collect (kernel F), and foveation is off.
+  * ``use_prepass`` (True): off, the leaf-map frames march kernel A from
+    ``tmin`` and kernel B is not launched; the pixels are the same, and
+    the hints' skip counts are 0.
+  * ``use_device_order`` (True): off, the hint frame's ray order is sorted
+    on the host from hints fetched there (``accel.order_from_hints``) and
+    uploaded; a moved camera keeps the stale order and budgets (no
+    re-hint frame, no dilated rebuild, no packed hints, no CDF budgets, no
+    clean-streak re-derivation) until a segment overflows.
+  * ``use_guided_segments`` (True): off, the leaf-map guided collect runs
+    in one ordered launch of kernel C, with no per-class budgets.
+  * ``use_dynamic_knobs`` (True) is accepted and changes nothing: in JAX it
+    spares a recompile, and nothing here is compiled per knob value.
+  * ``use_pallas_composite`` (None) is accepted and changes no pixel: in
+    JAX it picks between a Pallas and an XLA compositor, and here each
+    cache layout has one compositor, kernel D or G.  It keys the guided
+    image cache, as in JAX.
 """
 
 from __future__ import annotations
@@ -181,6 +195,13 @@ class Viewer:
         self._tree_gen = 0
         self._guided_gen = 0
         self._guided_img_cache = None
+        # the execution switches (module docstring)
+        self.use_fast_path = True
+        self.use_dynamic_knobs = True
+        self.use_pallas_composite = None
+        self.use_prepass = True
+        self.use_device_order = True
+        self.use_guided_segments = True
         self._leaf_map = None
         self._skip_table = None
         self._skip_thresh = None
@@ -388,7 +409,8 @@ class Viewer:
         needs_votes = (opt.use_splitting and not cam.is_dragging()
                        and self.model is not None)
         res = None
-        fov_ok = (self.tree.N == 2 and not track_visit and not needs_votes
+        fov_ok = (self.use_fast_path and self.tree.N == 2
+                  and not track_visit and not needs_votes
                   and int(self.foveation) > 1 and not opt.render_depth
                   and not opt.show_grid and not self.meshes)
         # a moving guided camera is not foveated (viewer.py:398-421 of the
@@ -413,7 +435,7 @@ class Viewer:
         elif opt.show_grid or self.meshes:
             with self.timer.time("render"):
                 img, res = self._render_with_grid(track_visit)
-        elif self.tree.N == 2 and not track_visit:
+        elif self.use_fast_path and self.tree.N == 2 and not track_visit:
             # leaf-map path, votes included when refining; each expand
             # drops the map and the next frame rebuilds it
             with self.timer.time("render"):
@@ -475,12 +497,13 @@ class Viewer:
 
     # ------------------------------------------------------------------
     def _ensure_maps(self, need_votes: bool = False):
-        """A valid leaf map and, unless this is a vote frame, the skip
-        table for the current ``sigma_thresh`` (``viewer.py:519-557``).
-        A turbo map is valid for a ``sigma_thresh`` at or above the one it
-        was built for and not for vote frames; it is rebuilt when the
-        threshold drops, on vote frames and when the switch goes off, and
-        the skip table with it.  Returns the skip table or None."""
+        """A valid leaf map and, with ``use_prepass`` on and unless this is
+        a vote frame, the skip table for the current ``sigma_thresh``
+        (``viewer.py:519-557``).  A turbo map is valid for a
+        ``sigma_thresh`` at or above the one it was built for and not for
+        vote frames; it is rebuilt when the threshold drops, on vote frames
+        and when the switch goes off, and the skip table with it.  Returns
+        the skip table or None."""
         opt = self.options
         turbo_thresh = self._leaf_map_turbo_thresh
         if self._leaf_map is not None and turbo_thresh is not None and (
@@ -497,7 +520,7 @@ class Viewer:
                     self._leaf_map = accel.build_leaf_map(self.tree)
                     self._leaf_map_turbo_thresh = None
             self._skip_table = None
-        if not need_votes:
+        if self.use_prepass and not need_votes:
             thresh = opt.sigma_thresh
             if self._skip_table is None or self._skip_thresh != thresh:
                 self._skip_table = build_skip_table(self.tree, thresh)
@@ -524,14 +547,17 @@ class Viewer:
         hints = self._hints_packed
         if hints is not None and hints.shape[0] != R:
             hints = self._hints_packed = None
-        if (self._order_stale and order is not None and hints is not None
-                and self.motion_mode == "rehint" and not need_votes
+        # without the device order a moved camera keeps the stale order and
+        # budgets until a segment overflows
+        reorder = (self.use_device_order and self._order_stale
+                   and order is not None and hints is not None)
+        if (reorder and self.motion_mode == "rehint" and not need_votes
                 and policy == "async" and w % 2 == 0 and h % 2 == 0):
             # camera moved, re-hint mode: measure this pose's record needs
             # with a quarter-resolution count march (async only: sub-sample
             # features may truncate within the tolerance band)
             return self._render_motion_rehint(hints, skip_table)
-        if self._order_stale and order is not None and hints is not None:
+        if reorder:
             # camera moved: rebuild the order on the device from the last
             # frame's hints, max-dilated by the estimated sweep; budgets
             # follow the dilated CDF, with one ladder step of headroom
@@ -564,12 +590,15 @@ class Viewer:
                 self._inv_host = order[1].cpu().numpy()
                 self._inv_src = order[1]
             self._frame_sorted = use_sorted
+            # packed hints feed the device order only
+            want_hints = self.use_device_order
             flags = {}
             out = accel.render_frame_fast_segmented(
                 self.tree, self._leaf_map, self.camera, self.options,
                 order=order, segments=tuple(segments),
                 chunk_size=self.fast_chunk_size, need_votes=need_votes,
-                skip_table=skip_table, return_hints="packed",
+                skip_table=skip_table,
+                return_hints="packed" if want_hints else False,
                 sorted_output=use_sorted,
                 device_fallback=policy == "device",
                 on_flags=(None if policy == "sync"
@@ -583,7 +612,8 @@ class Viewer:
                 img = out[0]
                 if need_votes:
                     split_vote, sample_vote = out[2], out[3]
-                self._hints_packed = out[-1]
+                if want_hints:
+                    self._hints_packed = out[-1]
             else:
                 ov = out[1].cpu().numpy()
                 if ov.any():
@@ -598,7 +628,8 @@ class Viewer:
                     img = out[0]
                     if need_votes:
                         split_vote, sample_vote = out[2], out[3]
-                    self._hints_packed = out[-1]
+                    if want_hints:
+                        self._hints_packed = out[-1]
                     self._segments = segments
         if order is None:
             # no order yet (first frame at this resolution, or a redo):
@@ -620,17 +651,24 @@ class Viewer:
                 img, _, steps, split_vote, sample_vote, nrec, skips = out
             else:
                 img, _, steps, nrec, skips = out
-            ph = accel.pack_hints(steps, nrec, skips)
-            self._ray_order = accel.order_from_packed_device(ph)
-            self._hints_packed = ph
-            # exact hints of a parked camera: CDF-matched budgets
-            self._last_cdf = accel.hint_class_cdf(nrec).cpu().numpy()
-            self._segments = list(accel.segments_from_hint_cdf(
-                self._last_cdf, R))
-            self._segments_src = ("steady",)
-            self._segments_motion = None     # re-derived per episode
-            self._order_back = np.asarray(
-                self.camera.transform, np.float32)[:3, :].copy()
+            if self.use_device_order:
+                ph = accel.pack_hints(steps, nrec, skips)
+                self._ray_order = accel.order_from_packed_device(ph)
+                self._hints_packed = ph
+                # exact hints of a parked camera: CDF-matched budgets
+                self._last_cdf = accel.hint_class_cdf(nrec).cpu().numpy()
+                self._segments = list(accel.segments_from_hint_cdf(
+                    self._last_cdf, R))
+                self._segments_src = ("steady",)
+                self._segments_motion = None     # re-derived per episode
+                self._order_back = np.asarray(
+                    self.camera.transform, np.float32)[:3, :].copy()
+            else:
+                # the host path (viewer.py:779-780): the hints fetched, the
+                # order sorted on the host and uploaded
+                order = accel.order_from_hints(steps.cpu(), nrec.cpu(),
+                                               skips.cpu())
+                self._ray_order = tuple(o.to(self.device) for o in order)
             self._order_stale = False
         if overflow:
             self._frame_sorted = False       # exact-path fallback
@@ -668,6 +706,9 @@ class Viewer:
             self._fov_key = key
         # the parent's knobs govern the subs, every frame
         for v, (w, h) in zip(self._fov_sub, sizes):
+            v.use_prepass = self.use_prepass
+            v.use_dynamic_knobs = self.use_dynamic_knobs
+            v.use_pallas_composite = self.use_pallas_composite
             v.overflow_policy = self.overflow_policy
             v.overflow_check_interval = self.overflow_check_interval
             v.use_turbo_map = self.use_turbo_map
@@ -852,7 +893,8 @@ class Viewer:
                 self._clean_streak += 1
             else:
                 self._clean_streak = 0
-            if (self._clean_streak >= 8 and not self._order_stale
+            if (self._clean_streak >= 8 and self.use_device_order
+                    and not self._order_stale
                     and self._hints_packed is not None
                     and self._segments_src != ("steady",)):
                 self._clean_streak = 0
@@ -920,7 +962,8 @@ class Viewer:
             self._can_reuse_results = False
         if not self._can_reuse_results or self._guided_cache is None:
             with self.timer.time("guided_sampling"):
-                if self.tree.N == 2 and not needs_votes and not track_visit:
+                if (self.use_fast_path and self.tree.N == 2
+                        and not needs_votes and not track_visit):
                     cache = self._collect_fast(cam, opt)
                     res = None
                 else:
@@ -933,7 +976,8 @@ class Viewer:
         cache, res = self._guided_cache
         # the composite depends only on (cache, camera, options)
         key = (self._guided_gen, cam.transform.tobytes(), cam.fx, cam.fy,
-               cam.cx, cam.cy, cam.width, cam.height, opt)
+               cam.cx, cam.cy, cam.width, cam.height, opt,
+               self.use_pallas_composite)
         if self._guided_img_cache is not None \
                 and self._guided_img_cache[0] == key:
             return self._guided_img_cache[1], res
@@ -945,8 +989,9 @@ class Viewer:
     def _collect_fast(self, cam, opt):
         """The leaf-map guided invalidation: the collect in the previous
         invalidation's cost order, segmented by per-class sample budgets
-        once hints exist, then the next order and budgets from this
-        collect's (ns, steps), dilated under camera motion."""
+        once hints exist (with ``use_guided_segments`` on), then the next
+        order and budgets from this collect's (ns, steps), dilated under
+        camera motion."""
         R = cam.width * cam.height
         skip_table = self._ensure_maps(False)
         g_order = self._guided_order
@@ -955,7 +1000,7 @@ class Viewer:
         if g_order is None:
             self._guided_segments = None
             self._guided_seg_src = None
-        segs = self._guided_segments
+        segs = self._guided_segments if self.use_guided_segments else None
         cache = guided.collect_and_query_fast(
             self.tree, self._leaf_map, self.model, cam, opt,
             chunk_size=self.fast_chunk_size, skip_table=skip_table,
@@ -964,7 +1009,7 @@ class Viewer:
                          if segs is not None else None))
         if "budget_hint_next" in cache:
             self._guided_budget_hint = cache["budget_hint_next"]
-        if "segments" in cache:
+        if segs is not None and "segments" in cache:
             # escalations settle here: the next invalidation starts from
             # the settled ladder
             self._guided_segments = cache["segments"]
@@ -977,7 +1022,8 @@ class Viewer:
                 window=window)
         self._guided_order = accel.order_from_ns_steps_device(ns_h, st_h)
         src = ("dil", window) if window else ("steady",)
-        if self._guided_segments is None or self._guided_seg_src != src:
+        if self.use_guided_segments and (self._guided_segments is None
+                                         or self._guided_seg_src != src):
             classes = accel.class_ladder(int(opt.max_guided_samples))
             cdf = accel.hint_class_cdf(ns_h, classes=classes)
             self._guided_segments = accel.segments_from_hint_cdf(

@@ -81,10 +81,10 @@ _TUPLE_FIELDS = {"render_bbox": 6, "basis_minmax": 2, "rot_dirs": 3}
 _CAM_SCALARS = ("fx", "fy", "cx", "cy", "movement_speed")
 _CAM_VECTORS = ("center", "origin", "v_back", "v_world_up")
 # Viewer execution knobs exposed in the extra "Execution" panel section
-# (the knobs the port's Viewer has; viewer.py's docstring names the JAX
-# switches it leaves out, which answer here as unknown knobs)
-_VIEWER_FLAGS = ("use_turbo_map", "foveation", "overflow_policy",
-                 "host_unpermute", "motion_mode", "motion_flag_interval")
+_VIEWER_FLAGS = ("use_fast_path", "use_dynamic_knobs", "use_turbo_map",
+                 "use_prepass", "use_device_order", "foveation",
+                 "overflow_policy", "host_unpermute", "motion_mode",
+                 "motion_flag_interval")
 
 
 class WebViewer:
@@ -639,6 +639,10 @@ _PAGE = ("""<!doctype html>
  </details>
  <details><summary>Execution</summary>
   <div>
+   <label class="chk"><input type="checkbox" data-viewer="use_fast_path">
+    fast path</label>
+   <label class="chk"><input type="checkbox" data-viewer="use_prepass">
+    prepass</label>
    <label class="chk"><input type="checkbox" data-viewer="use_turbo_map">
     turbo</label>
    <label class="chk">

@@ -228,11 +228,11 @@ def test_guided_motion_gate_matches_jax():
     (``test_viewer.py::test_foveation_gated_off_under_guided_motion``)."""
     jv, pv = _pair(w=32, h=24, f=30.0, basis_dim=1, depth=4, model=True,
                    max_cap=4096, **GUIDED)
-    # JAX's ordered collect gives its segmented collect's frames
-    # (test_torch_viewer_guided.py::test_viewer_guided_segmented_collect)
-    # and compiles fewer programs
-    jv.use_guided_segments = False
+    # both take the ordered collect, which gives the segmented collect's
+    # frames (test_torch_viewer_guided.py::
+    # test_viewer_guided_segmented_collect) and compiles fewer JAX programs
     for v in (jv, pv):
+        v.use_guided_segments = False
         v.foveation = 2
 
     def flags(v):

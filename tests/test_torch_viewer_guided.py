@@ -52,26 +52,33 @@ def test_guided_cache_invalidated_on_camera_move():
 
 
 def test_viewer_guided_segmented_collect():
-    """The port's Viewer always takes the segmented collect: its frames,
-    orders and ladders equal the JAX Viewer's, the steady classes start
-    with a zero budget, and the frames equal those of JAX's ordered
-    collect (``use_guided_segments`` off).  The port's ordered collect,
-    called directly on the same order, composites the same frame."""
+    """The port's Viewer takes the segmented collect by default: its
+    frames, orders and ladders equal the JAX Viewer's, the steady classes
+    start with a zero budget, and the frames equal those of both Viewers'
+    ordered collect (``use_guided_segments`` off, which keeps no ladder).
+    The port's ordered collect, called directly on the same order,
+    composites the same frame."""
     jv, pv = _guided_pair()
-    jo = _guided_pair()[0]
-    jo.use_guided_segments = False
+    jo, po = _guided_pair()
+    for v in (jo, po):
+        v.use_guided_segments = False
     step(jv, pv)
     assert pv._guided_segments[0][1] == 0
     assert pv._guided_segments[0][0] > 1.0 / 16.0
     np.testing.assert_allclose(np.asarray(jo.render()), pv.render(),
                                rtol=0, atol=PIX_TOL)
-    for v in (jv, pv, jo):
+    np.testing.assert_allclose(po.render(), pv.render(), rtol=0,
+                               atol=PIX_TOL)
+    for v in (jv, pv, jo, po):
         v.camera.move(np.array([0.05, 0.0, 0.0]))
     img = step(jv, pv)[1]
     np.testing.assert_allclose(np.asarray(jo.render()), img, rtol=0,
                                atol=PIX_TOL)
-    np.testing.assert_array_equal(_arr(pv._guided_order[0]),
-                                  _arr(jo._guided_order[0]))
+    np.testing.assert_allclose(po.render(), img, rtol=0, atol=PIX_TOL)
+    assert po._guided_segments is None and jo._guided_segments is None
+    for o in (jo, po):
+        np.testing.assert_array_equal(_arr(pv._guided_order[0]),
+                                      _arr(o._guided_order[0]))
     cam, opt = pv.camera, pv.options
     frames = []
     for segs in (None, pv._guided_segments):

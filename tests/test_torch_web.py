@@ -5,7 +5,8 @@ CPU, plus:
   * served frames within 1 rgba8 level of the JAX Viewer's
     ``render_rgba8`` at the same pose (the JAX Viewer renders on the test's
     main thread, never on the server's render thread);
-  * the JAX knobs the port's Viewer leaves out answer as unknown knobs;
+  * JAX's viewer knobs (``web.py:81-84``) reach the port's Viewer, and a
+    knob neither package has answers as unknown;
   * a grid frame and a foveated frame rendered through the server;
   * ``cli --serve 0`` in a subprocess.
 """
@@ -113,7 +114,8 @@ def test_index_page(server):
     assert status == 200
     assert b"mega-nerf-viewer-tpu" in body
     assert b"<summary>Execution</summary>" in body
-    assert b"TPU" not in body and b"use_prepass" not in body
+    assert b"use_prepass" in body and b"use_fast_path" in body
+    assert b"TPU" not in body
     assert "text/html" in headers["Content-Type"]
 
 
@@ -224,7 +226,9 @@ def test_state_contents(server):
     assert s["camera"]["width"] == 16
     assert s["options"]["step_size"] == pytest.approx(1e-4)
     assert s["viewer"] == {
-        "use_turbo_map": False, "foveation": 1, "overflow_policy": "sync",
+        "use_fast_path": True, "use_dynamic_knobs": True,
+        "use_turbo_map": False, "use_prepass": True,
+        "use_device_order": True, "foveation": 1, "overflow_policy": "sync",
         "host_unpermute": False, "motion_mode": "rehint",
         "motion_flag_interval": 4}
 
@@ -320,15 +324,32 @@ def test_viewer_knob_roundtrip_renders_foveated(server):
                             "motion_flag_interval": 4})
 
 
-@pytest.mark.parametrize("knob", ["use_fast_path", "use_dynamic_knobs",
-                                  "use_prepass", "use_device_order"])
-def test_absent_knobs_are_unknown(server, knob):
-    _, base = server
+@pytest.mark.parametrize("knob,known", [
+    ("use_fast_path", True), ("use_dynamic_knobs", True),
+    ("use_prepass", True), ("use_device_order", True),
+    ("use_hyperdrive", False)])
+def test_absent_knobs_are_unknown(server, knob, known):
+    """The JAX knobs the port's Viewer once left out now reach it: set to
+    False over ``POST /event``, the state reads it back and the next render
+    succeeds.  A knob neither Viewer has still answers 500."""
+    wv, base = server
     status, res = _post(base + "/event", {"t": "viewer", knob: False})
-    assert status == 500 and "unknown viewer knob" in res["error"]
-    assert knob in res["error"]
-    status, res = _post(base + "/event", {"t": "render"})
-    assert status == 200 and not res["error"]
+    if not known:
+        assert status == 500 and "unknown viewer knob" in res["error"]
+        assert knob in res["error"] and not hasattr(wv.viewer, knob)
+    else:
+        assert status == 200 and not res["error"]
+        assert _state(base)["viewer"][knob] is False
+    try:
+        status, res = _post(base + "/event", {"t": "render"})
+        assert status == 200 and not res["error"]
+        if known:
+            assert getattr(wv.viewer, knob) is False
+            img, _ = _latest_raw(base)
+            assert img[..., 3].max() > 128
+    finally:
+        if known:
+            _post(base + "/event", {"t": "viewer", knob: True})
 
 
 def test_bad_event_reports_error(server):
