@@ -85,7 +85,15 @@ shapes of the main paths, and drives both paths of the port:
   ordered collect launch, equal to the segmented stops),
   ``use_dynamic_knobs`` and ``use_pallas_composite`` (frames equal to the
   default), and foveation at f = 2 with the prepass off (B not launched in
-  the subs).
+  the subs);
+* the aerial artifact (phase 23): ``gen_fixtures.make_big_scene_npz``'s
+  175,656-chunk SH4 tree of depth 9, built without JAX
+  (:func:`aerial_artifact`) and loaded by ``N3Tree.open``; the committed
+  goldens (the exact 160x160 frame through kernel E, the fast 512x512
+  frame through A and B), ``bench.py``'s 1080p protocol with chunk-exact
+  budgets, A and B against their plain versions on its rays, the exact
+  frame and a level-7 map (A's resumed descent) against the leaf-map
+  frame, and the three frames' times with A's, B's and E's alone.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -133,6 +141,12 @@ EXACT_BYTES_PER_STEP = 8
 # z (9), the position (3), the cluster id (8)
 RECORD_OPS = 20
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1111.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the aerial artifact (tests/fixtures/gen_fixtures.py make_big_scene_npz)
+# and gen_fixtures.aerial_camera()'s pose
+AERIAL_DEPTH = 9
+AERIAL_FOCAL = 150.0
+AERIAL_CENTER = (-0.9, 1.1, 1.5)
 CENTER = (-1.4, 0.1, 1.3)
 N_FRAMES, ROUNDS = 10, 3
 # benchmarks/guided1080p.py: max_guided_samples and the model
@@ -259,6 +273,41 @@ def profile_frames(frame, ms_frame, n=3, what="frame"):
 def camera(cls, w, h, f):
     cam = cls(w, h, f)
     cam.center = np.asarray(CENTER, np.float32)
+    cam._update()
+    return cam
+
+
+def aerial_artifact(path, depth=AERIAL_DEPTH):
+    """Build the aerial artifact into the npz ``path`` without JAX:
+    ``tests/fixtures/gen_fixtures.py``'s ``make_big_scene_npz`` (its
+    occupancy and colour fields, its svox writer, basis 4, sigma 120)
+    over the port's ``field_tree_arrays``.  At depth 9 it is the
+    175,656-chunk tree that ``bench.py`` times as its ``aerial_*`` rider.
+    ``gen_fixtures`` is loaded by file path; nothing of it that imports the
+    JAX package is called.  Returns (path, chunks)."""
+    import importlib.util
+    from mega_nerf_viewer_tpu_torch.n3tree.synthetic import field_tree_arrays
+    spec = importlib.util.spec_from_file_location("gen_fixtures", os.path.join(
+        ROOT, "tests", "fixtures", "gen_fixtures.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    data, child, parent, scale, offset, fmt, depths = field_tree_arrays(
+        gen.big_occ_v, gen.big_rgb_v, depth=depth, basis_dim=4, sigma=120.0)
+    cap = data.shape[0]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    gen.write_svox_npz(path, data, child.reshape(cap, 2, 2, 2),
+                       np.stack([parent, depths], axis=1),
+                       invradius=float(scale[0]), offset=offset,
+                       data_format=fmt.to_string())
+    return path, cap
+
+
+def aerial_camera(cls, w, h):
+    """``gen_fixtures.aerial_camera()``'s pose (160x160, f = 150) at
+    ``w`` x ``h``, the focal length scaled with the width."""
+    cam = cls(w, h, AERIAL_FOCAL * w / 160.0)
+    cam.center = np.asarray(AERIAL_CENTER, np.float32)
+    cam.v_back = cam.center / np.linalg.norm(cam.center)
     cam._update()
     return cam
 
@@ -491,15 +540,18 @@ def main():
     sharded_launches = sharded_phase(P, kernels, dev)
     torch.cuda.empty_cache()
     switches_launches = switches_phase(P, kernels)
+    torch.cuda.empty_cache()
+    aerial_launches = aerial_phase(P, kernels, dev, smi)
 
-    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21 and
-    # 22), summed over the paths for the kernels that several paths run;
-    # kernel H is on no path (0)
+    # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
+    # 22 and 23), summed over the paths for the kernels that several paths
+    # run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
-            rest_launches, sharded_launches, switches_launches))
+            rest_launches, sharded_launches, switches_launches,
+            aerial_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -3670,6 +3722,268 @@ def switches_phase(P, kernels):
     torch.cuda.empty_cache()
     log(f"phase 22 in {time.perf_counter() - t0:.1f} s; launches {total}")
     return total
+
+def aerial_phase(P, kernels, dev, smi):
+    """Phase 23: the aerial artifact (175,656 chunks, depth 9, SH4), built
+    without JAX (:func:`aerial_artifact`) and loaded onto the card by
+    ``N3Tree.open``.  The committed goldens: the exact frame at 160x160
+    through kernel E, the fast frame at 512x512 through A and B.  Then
+    ``bench.py``'s 1080p protocol (bench.py:249-392): the hint frame with
+    ``max_dense`` escalation, ``order_from_hints``, chunk-exact
+    ``seg_counts_from_hints`` budgets and the record-sorted segmented
+    frame, with A and B held against their plain versions on the hint
+    frame's rays; the exact frame (one launch of E) and the same segmented
+    frame on a level-7 map (A's resumed descent, two levels) against it;
+    then the three frames' times and A's, B's and E's alone with their
+    bounds.  Returns the path's launches."""
+    from mega_nerf_viewer_tpu_torch.ops import accel, render
+    from mega_nerf_viewer_tpu_torch.ops import skip_prepass as sp
+    from mega_nerf_viewer_tpu_torch.ops.rays import (
+        rodrigues, screen2worlddir, screen2worlddir_indices)
+    from mega_nerf_viewer_tpu_torch.utils.metrics import psnr
+    from mega_nerf_viewer_tpu_torch.utils.png import read_png
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    path, cap = aerial_artifact(os.path.join(ROOT, "build",
+                                             "aerial_sh4_d9.npz"))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = P.N3Tree.open(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    opt = P.RenderOptions()
+    leaf_map = P.build_leaf_map(tree)
+    table = P.build_skip_table(tree, opt.sigma_thresh)
+    torch.cuda.synchronize()
+    depth = accel.tree_max_depth(tree)
+    tree_bytes = nbytes(tree.data, tree.child, tree.parent,
+                        tree.sample_counts, tree.scale, tree.offset)
+    log(f"aerial artifact: {cap} chunks, depth {depth}, "
+        f"{tree.data_format.to_string()}, built on the host in "
+        f"{build_s:.1f} s, loaded in {load_s:.1f} s; on the device: tree "
+        f"{tree_bytes / 1e6:.1f} MB, leaf map level {leaf_map.level} "
+        f"(+{leaf_map.deep_levels} deep) {nbytes(leaf_map.rows) / 1e9:.3f} "
+        f"GB, skip table {nbytes(table)} B")
+    check(cap == 175_656 and depth == AERIAL_DEPTH
+          and tree.data_format.to_string() == "SH4",
+          "the aerial artifact is not the 175,656-chunk SH4 tree of depth 9")
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the committed goldens (tests/test_golden.py:98 and :141) ------
+    gopt = P.RenderOptions(background_brightness=0.9)
+    fixtures = os.path.join(ROOT, "tests", "fixtures")
+    gcam = aerial_camera(P.Camera, 160, 160)
+    img, _ = P.render_frame(tree, gcam.width, gcam.height, gcam.fx, gcam.fy,
+                            gcam.cx, gcam.cy, gcam.transform, gopt)
+    check(kernels.LAUNCHES["exact_march"] > 0, "the exact golden frame did "
+          "not run kernel E")
+    p160 = psnr(render.to_rgba8(img).cpu().numpy().astype(np.float32)
+                / 255.0, read_png(os.path.join(
+                    fixtures, "aerial_sh4_d9_golden.png")) / 255.0)
+    before = dict(kernels.LAUNCHES)
+    gcam = aerial_camera(P.Camera, 512, 512)
+    fast, overflow, _ = P.render_frame_fast(
+        tree, leaf_map, gcam, gopt, max_dense=32, chunk_size=0,
+        skip_table=table)
+    check(not int(overflow), "the 512x512 golden frame overflowed")
+    check(kernels.LAUNCHES["march"] > before["march"]
+          and kernels.LAUNCHES["skip_prepass"] > before["skip_prepass"],
+          "the fast golden frame did not run kernels A and B")
+    p512 = psnr(render.to_rgba8(fast).cpu().numpy().astype(np.float32)
+                / 255.0, read_png(os.path.join(
+                    fixtures, "aerial_sh4_d9_golden512.png")) / 255.0)
+    log(f"aerial goldens on the card: exact 160x160 (kernel E) PSNR "
+        f"{p160:.2f} dB (> 48), fast 512x512 (A and B) PSNR {p512:.2f} dB "
+        f"(> 45)")
+    check(p160 > 48.0, f"exact golden PSNR {p160}")
+    check(p512 > 45.0, f"fast golden PSNR {p512}")
+    del img, fast
+
+    # -- bench.py's 1080p protocol on the artifact ---------------------
+    tune = P.device_tuning()
+    cs, blk = tune.chunk_size, tune.block
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    md = 8
+    while True:
+        hint, overflow, steps, nrec, skips = P.render_frame_fast(
+            tree, leaf_map, cam, opt, max_dense=md, chunk_size=cs,
+            block=blk, return_nrec=True, skip_table=table,
+            return_skips=True)
+        if not int(overflow):
+            break
+        md *= 2
+        check(md <= 512, "pathological dense-sample count")
+    order = P.order_from_hints(steps, nrec, skips)
+    seg_counts = [list(sc) for sc in P.seg_counts_from_hints(
+        nrec.reshape(-1)[order[0]], cs)]
+
+    def frame(lm=leaf_map, **kw):
+        return P.render_frame_fast_segmented(
+            tree, lm, cam, opt, order, None, cs, skip_table=table,
+            seg_counts=tuple(tuple(sc) for sc in seg_counts), **kw)
+
+    while True:
+        img, seg_overflow = frame()
+        ov = seg_overflow.cpu().numpy()
+        if not ov.any():
+            break
+        for i in np.flatnonzero(ov):
+            seg_counts[i][1] = max(1, seg_counts[i][1] * 2)
+            check(seg_counts[i][1] <= 512, "segment budget beyond 512")
+    diff_hint = float((img - hint).abs().max())
+    log(f"aerial 1080p: hint budget {md}, {int(steps.sum())} steps, "
+        f"{int(nrec.sum())} records, {int(skips.sum())} skips, alpha max "
+        f"{float(img[..., 3].max()):.4f}; chunk-exact segments "
+        f"{[tuple(sc) for sc in seg_counts]}; segmented frame vs hint "
+        f"frame: max abs diff {diff_hint:.3e}")
+    check(bool(torch.isfinite(img).all()), "non-finite aerial pixels")
+    check(diff_hint <= 1e-6, "aerial segmented frame differs from the hint "
+          "frame")
+
+    # kernels B and A against their plain versions on the hint frame's
+    # rays (pixel-block order, padded to whole chunks), and each alone
+    R = WIDTH * HEIGHT
+    bperm, _ = accel.block_permutation(WIDTH, HEIGHT, blk, device=dev)
+    n_pad = -(-R // cs) * cs
+    pix = torch.cat([bperm, bperm[-1:].expand(n_pad - R)])
+    dirs, cen_world = screen2worlddir_indices(
+        pix, WIDTH, cam.fx, cam.fy, cam.cx, cam.cy,
+        torch.as_tensor(cam.transform, device=dev))
+    m = accel.march_inputs(tree, dirs, dirs, cen_world, opt)
+    live = ~m.miss
+    b_args = (table, m.cen, m.d, m.invdir, m.tmin, m.tmax, live,
+              m.step_size)
+    t_k, s_k = uncounted(kernels, lambda: kernels.skip_prepass(*b_args))
+    t_p, s_p = sp.entry_skip_prepass_reference(*b_args)
+    check(torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)),
+          "aerial prepass t not bit-equal to the plain version")
+    check(torch.equal(s_k, s_p), "aerial prepass skips differ")
+    ma = m._replace(tmin=t_k)
+    a_args = (tree, leaf_map, ma.cen, ma.d, ma.invdir, ma.delta_scale,
+              ma.tmin, ma.tmax, ma.miss, ma.basis, ma.step_size,
+              ma.sigma_thresh, ma.stop_thresh, md, ma.use_sh)
+    ok = uncounted(kernels, lambda: kernels.march(*a_args))
+    op = accel.render_rays_fast_reference(*a_args)
+    err_a = float((ok[0] - op[0]).abs().max())
+    for name, a, b in zip(("overflow", "steps", "records"), ok[1:4],
+                          op[1:4]):
+        check(torch.equal(a, b), f"aerial march {name} differ from the "
+              f"plain version")
+    check(err_a <= 1e-6, f"aerial march differs by {err_a}")
+    b_steps = int(s_k.sum())
+    a_steps, shaded = int(ok[2].sum()), int(ok[3].clamp(max=md).sum())
+
+    def alone(fn, n):
+        """(device ms, how, CUDA-event ms) of ``fn`` alone, uncounted: the
+        events (which also hold the host's gaps) cross-check the
+        profiler's device time."""
+        ms, by = uncounted(kernels, lambda: device_ms(fn, n))
+        return ms, by, uncounted(kernels, lambda: cuda_ms(fn, n))
+
+    ms_b, by_b, ev_b = alone(lambda: kernels.skip_prepass(*b_args), 20)
+    ms_a, by_a, ev_a = alone(lambda: kernels.march(*a_args), 20)
+    bb, bb_by = bound_ms(nbytes(table, m.cen, m.d, m.invdir, m.tmin, m.tmax,
+                                live, t_k, s_k),
+                         PREPASS_OPS_PER_STEP * b_steps)
+    B = ma.basis.shape[1]
+    ba, ba_by = bound_ms(
+        nbytes(ma.d, ma.invdir, ma.delta_scale, ma.tmin, ma.tmax, ma.miss,
+               ma.basis, ok[0], ok[2], ok[3])
+        + 8 * a_steps + 2 * tree.data_dim * shaded,
+        MARCH_OPS_PER_STEP * a_steps + (6 * B + 15) * shaded)
+    log(f"aerial kernels against their plain versions over {n_pad} rays: "
+        f"prepass t bit-equal, {b_steps} skips equal; march md {md}: "
+        f"overflow, {a_steps} steps and {int(ok[3].sum())} records equal, "
+        f"out max abs diff {err_a:.3e}")
+    del t_p, s_p, op, ok, dirs, cen_world, m, ma
+
+    # the exact frame: one launch of kernel E
+    def exact_frame():
+        return P.render_frame(tree, WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                              cam.cy, cam.transform, opt)[0]
+
+    exact = exact_frame()
+    diff_exact = float((exact - img).abs().max())
+    log(f"aerial 1080p exact frame (kernel E) vs leaf-map frame: max abs "
+        f"diff {diff_exact:.3e}")
+    check(diff_exact <= 1e-5, "aerial exact frame differs from the leaf-map "
+          "frame")
+    transform = torch.as_tensor(cam.transform, dtype=torch.float32,
+                                device=dev)
+    edirs, ecen = screen2worlddir(WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx,
+                                  cam.cy, transform)
+    me = accel.march_inputs(tree, edirs, rodrigues(opt.rot_dirs, edirs),
+                            ecen, opt)
+    e_args = (tree, me, opt, False, render.DEFAULT_MAX_LEVELS, 0)
+    ke = uncounted(kernels, lambda: kernels.exact_march(*e_args))
+    ka = uncounted(kernels, lambda: kernels.march(
+        tree, leaf_map, me.cen, me.d, me.invdir, me.delta_scale, me.tmin,
+        me.tmax, me.miss, me.basis, me.step_size, me.sigma_thresh,
+        me.stop_thresh, md, me.use_sh))
+    check(not int(ka[1]), "kernel A from tmin overflowed the hint budget")
+    e_steps, e_shaded = int(ke[4].sum()), int(ka[3].sum())
+    n_other = int((ka[2] != ke[4]).sum())
+    ms_e, by_e, ev_e = alone(lambda: kernels.exact_march(*e_args), 10)
+    be, be_by = exact_bound(me, ke[:3] + (ke[4],), e_steps, e_shaded,
+                            tree.data_dim)
+    log(f"aerial kernel E alone: {e_steps} steps (max {int(ke[4].max())}), "
+        f"{e_shaded} shaded samples; kernel A from tmin: {n_other} rays "
+        f"with other step counts than E")
+    del ke, ka, me, edirs, ecen
+
+    # kernel A's resumed descent: the same frame on a level-7 map
+    lm7 = P.build_leaf_map(tree, level=7)
+    check(lm7.deep_levels == 2, f"level-7 map has {lm7.deep_levels} deep "
+          f"levels")
+    out9 = frame(return_hints=True)
+    out7 = frame(lm7, return_hints=True)
+    diff7 = float((out7[0] - out9[0]).abs().max())
+    same = [torch.equal(a, b) for a, b in zip(out7[2:], out9[2:])]
+    log(f"aerial 1080p on a level-7 map (+2 deep): max abs diff "
+        f"{diff7:.3e} to level 9; steps {int(out7[2].sum())} / "
+        f"{int(out9[2].sum())}, records {int(out7[3].sum())} / "
+        f"{int(out9[3].sum())}, skips {int(out7[4].sum())} / "
+        f"{int(out9[4].sum())} (level 7 / level 9), equal per ray {same}")
+    check(not out7[1].any(), "the level-7 frame overflowed")
+    check(diff7 <= 1e-6, "the level-7 frame differs from the level-9 frame")
+    check(all(same), "the level-7 frame's hints differ from level 9's")
+    del out7, out9
+    ms_a7, by_a7, ev_a7 = alone(
+        lambda: kernels.march(tree, lm7, *a_args[2:]), 20)
+
+    # times: CUDA events, 10 frames a round, the three frames in turns
+    rounds = {"leaf map": [], "exact": [], "level 7": []}
+    for _ in range(ROUNDS):
+        rounds["leaf map"].append(cuda_ms(frame, N_FRAMES))
+        rounds["exact"].append(cuda_ms(exact_frame, N_FRAMES))
+        rounds["level 7"].append(cuda_ms(lambda: frame(lm7), N_FRAMES))
+    med = {k: sorted(v)[ROUNDS // 2] for k, v in rounds.items()}
+    launches = read_launches(kernels, ("skip_prepass", "march",
+                                       "exact_march"), "phase 23")
+    peak = torch.cuda.max_memory_allocated()
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"aerial 1080p times ({power}; phase 1: {smi}), median of "
+        f"{ROUNDS} rounds of {N_FRAMES} frames: leaf-map frame "
+        f"{med['leaf map']:.3f} ms, exact frame {med['exact']:.3f} ms, "
+        f"level-7 frame {med['level 7']:.3f} ms (rounds "
+        + "; ".join(f"{k} {[round(r, 3) for r in v]}"
+                    for k, v in rounds.items()) + ")")
+    log(f"aerial kernels alone ({power}): skip_prepass {ms_b:.4f} ms "
+        f"({by_b}; events {ev_b:.4f}; bound {bb:.4f} ms by {bb_by}, "
+        f"{100 * bb / ms_b:.0f}%); march {ms_a:.4f} ms ({by_a}; events "
+        f"{ev_a:.4f}; bound {ba:.4f} ms by {ba_by}, {100 * ba / ms_a:.0f}%; "
+        f"{a_steps} steps, {shaded} shaded samples), on the level-7 map "
+        f"{ms_a7:.4f} ms ({by_a7}; events {ev_a7:.4f}); exact_march "
+        f"{ms_e:.4f} ms ({by_e}; events {ev_e:.4f}; bound {be:.4f} ms by "
+        f"{be_by}, {100 * be / ms_e:.0f}%)")
+    log(f"phase 23 in {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}; peak memory {peak / 2**30:.2f} GiB")
+    return launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

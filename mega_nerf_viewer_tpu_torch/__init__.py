@@ -57,20 +57,11 @@ from .ops.skip_prepass import build_skip_table, entry_skip_prepass
 from .utils.tuning import device_tuning
 from .viewer import Viewer
 
+# JAX's ``__all__``; the other names imported above stay attributes of
+# the package
 __all__ = [
-    "__version__", "render", "load_tree", "DataFormat", "random_tree",
-    "Camera", "RenderOptions", "N3Tree", "shell_tree", "sphere_tree",
-    "tree_from_numpy", "DEFAULT_SEGMENTS", "LeafMap", "build_leaf_map",
-    "order_from_hints", "render_frame_fast", "render_frame_fast_segmented",
-    "render_rays_fast", "CHUNK_EXACT_BUDGETS", "build_turbo_leaf_map",
-    "order_from_steps", "quarter_order_from_packed", "render_frame_motion",
-    "seg_counts_from_hints", "build_skip_table", "entry_skip_prepass",
-    "device_tuning", "MegaNeRFModel", "collect_and_query_fast",
-    "composite_frame", "segments_from_ns_hints", "GuidedSamples",
-    "collect_and_query", "collect_samples", "composite_results",
-    "expand_voxels", "expand_voxels_jit", "get_more_samples", "prune_tree",
-    "RenderResult", "fresh_visit_tracker", "render_frame", "render_rays",
-    "Viewer",
+    "__version__", "RenderOptions", "Camera", "N3Tree", "DataFormat",
+    "render", "load_tree", "Viewer",
 ]
 
 

@@ -403,6 +403,7 @@ def render_rays_fast(tree: N3Tree,
                      tmax_bg: Optional[torch.Tensor] = None,
                      max_dense: int = 64,
                      chunk_size: int = 0,
+                     unroll: int = 1,
                      need_votes: bool = False,
                      dyn=None,
                      skip_table: Optional[torch.Tensor] = None
@@ -417,6 +418,8 @@ def render_rays_fast(tree: N3Tree,
     ``need_votes`` adds the split and sample votes of the exact march
     (one more sample-count read per step); vote frames take no skip table
     in the viewer, since the fallback vote inspects empty leaves.
+    ``unroll`` is JAX's (leaf steps per while iteration); it is accepted
+    and inert: the kernel's loop is its own.
     """
     m, skips = _prepass(march_inputs(tree, dirs, vdirs, cen_world, opt,
                                      tmax_bg, dyn), skip_table)
@@ -885,10 +888,12 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
                       block: int = 128,
                       step_hint=None,
                       order: Optional[tuple] = None,
+                      unroll: int = 1,
+                      need_votes: bool = False,
+                      dynamic_knobs: bool = False,
                       return_nrec: bool = False,
                       skip_table: Optional[torch.Tensor] = None,
-                      return_skips: bool = False,
-                      need_votes: bool = False):
+                      return_skips: bool = False):
     """Full fast frame at one ``max_dense`` budget.
 
     Rays go in ``order`` = (perm, inv), or else in the order of
@@ -897,7 +902,10 @@ def render_frame_fast(tree: N3Tree, leaf_map: LeafMap,
     speed; pixels are identical.
     Returns ([H, W, 4] f32, overflow count, steps [H*W] i32) and then, as
     asked, (split_vote, sample_vote [H*W, 3]) with ``need_votes``, nrec
-    and skips, all in pixel order."""
+    and skips, all in pixel order.  ``unroll`` and ``dynamic_knobs`` are
+    JAX's compile knobs (a loop unroll; the knobs of ``opt`` as traced
+    values, so a change compiles nothing); they are accepted and inert,
+    since nothing here compiles per value."""
     w, h = camera.width, camera.height
     R = w * h
     dev = tree.device
@@ -1021,14 +1029,16 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
                                 order: tuple,
                                 segments=DEFAULT_SEGMENTS,
                                 chunk_size: int = 1 << 15,
+                                unroll: int = 1,
+                                need_votes: bool = False,
+                                dynamic_knobs: bool = False,
                                 skip_table: Optional[torch.Tensor] = None,
                                 group: int = 1,
+                                device_fallback: bool = False,
                                 return_hints: bool = False,
                                 sorted_output: bool = False,
-                                need_votes: bool = False,
-                                device_fallback: bool = False,
                                 seg_counts: Optional[tuple] = None,
-                                on_flags=None):
+                                *, on_flags=None):
     """Record-sorted segmented fast frame.
 
     ``order`` comes from :func:`order_from_hints`; each contiguous ray
@@ -1041,7 +1051,8 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
     frame at budget 128 on the card when a segment overflowed (see
     :func:`_frame_core`), so the frame is right without a host check;
     ``fb_overflow`` counts the rays beyond even that.  ``on_flags``: see
-    :func:`_frame_core`.
+    :func:`_frame_core`.  ``unroll`` and ``dynamic_knobs`` are accepted and
+    inert, as in :func:`render_frame_fast`.
 
     Returns (img [H, W, 4] — or flat [R, 4] rows in ``perm`` order when
     ``sorted_output``, so ``img[inv]`` is the pixel-order frame —,
@@ -1194,9 +1205,11 @@ def render_frame_motion(tree: N3Tree, leaf_map: LeafMap, camera,
                         opt: RenderOptions, stale_perm: torch.Tensor,
                         segments=DEFAULT_SEGMENTS,
                         chunk_size: int = 1 << 15,
+                        unroll: int = 1,
+                        dynamic_knobs: bool = False,
                         skip_table: Optional[torch.Tensor] = None,
                         hint_chunk: Optional[int] = None,
-                        hint_stride: int = 1, on_flags=None):
+                        hint_stride: int = 1, *, on_flags=None):
     """Re-hint two-pass motion frame (``accel.py:1721-1768``; see
     :func:`_motion_core`).
 
@@ -1205,7 +1218,9 @@ def render_frame_motion(tree: N3Tree, leaf_map: LeafMap, camera,
     :func:`quarter_order_from_packed` of steady hints).  Stride 2 falls
     back to 1 on odd frame sizes; a quarter order of the wrong size raises
     ``ValueError``.  Pixels equal the steady segmented frame's at the same
-    order and budgets whenever no segment overflows.
+    order and budgets whenever no segment overflows.  ``unroll`` and
+    ``dynamic_knobs`` are accepted and inert, as in
+    :func:`render_frame_fast`.
 
     Returns (img [H, W, 4], seg_overflow i32 [n_segments], (perm, inv),
     cdf i32 [6], qperm or None)."""

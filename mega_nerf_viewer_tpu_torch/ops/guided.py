@@ -652,7 +652,7 @@ def _composite_frame_compact(res_c, z_c, ray_of_p, offs, ns, camera,
 
 
 def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
-                    cache: dict) -> torch.Tensor:
+                    cache: dict, use_pallas=None) -> torch.Tensor:
     """Composite a frame from a compact guided cache (reference
     ``render_nerf_results``, renderer_kernel.cu:294-327).  Returns
     [H, W, 4] rgba with alpha 1.
@@ -664,7 +664,10 @@ def composite_frame(tree: N3Tree, camera, opt: RenderOptions,
     directions.  A padded cache (``collect_and_query``) goes to the padded
     compositor with this frame's view directions (``guided.py:1144-1151``),
     in depth mode too.  Depth mode on a compact cache goes to the compact
-    compositor's depth branch, which needs no view directions."""
+    compositor's depth branch, which needs no view directions.
+    ``use_pallas`` is JAX's switch between its Pallas compositor and XLA
+    (``guided.py:1081-1091``); it is accepted and inert: every cache takes
+    the route above, on the card through the kernels."""
     fmt_sh = tree.data_format.format == "SH"
     if "results_c" not in cache:
         transform = torch.as_tensor(camera.transform, dtype=torch.float32,

@@ -65,8 +65,8 @@ def _dda_unit_batch(pos: torch.Tensor, invdir: torch.Tensor) -> torch.Tensor:
 
 
 def composite_background(out: torch.Tensor, opt: RenderOptions,
-                         bg_value: Optional[float] = None,
-                         bg_rgb: Optional[torch.Tensor] = None
+                         bg_rgb: Optional[torch.Tensor] = None,
+                         bg_value: Optional[float] = None
                          ) -> torch.Tensor:
     """Offscreen background composite: rgb += bg * (1 - alpha).
     ``bg_rgb`` [R, 3] is a per-pixel background (the overlay colours of

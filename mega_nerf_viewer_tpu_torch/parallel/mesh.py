@@ -130,14 +130,33 @@ class Mesh:
         return f"Mesh({self.shape}, device={self.device})"
 
 
+def _rank_device(devices: Optional[Sequence], device):
+    """This rank's entry of ``devices`` (the ranks' devices in rank order),
+    unless ``device`` names it."""
+    if devices is None or device is not None:
+        return device
+    devices = list(devices)
+    rank = (dist.get_rank() if dist.is_initialized()
+            else int(os.environ.get("RANK", 0)))
+    if rank >= len(devices):
+        raise ValueError(f"rank {rank} has no entry in {len(devices)} "
+                         f"devices")
+    return devices[rank]
+
+
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
-              device=None) -> Mesh:
+              devices: Optional[Sequence] = None, *, device=None) -> Mesh:
     """A mesh of ``shape`` over every rank of the group, in rank order
     (starting a world of one if no group stands).  Its size must be the
     world's: a rank outside a mesh would have no part in its frames.  The
     same arguments over the same group return the same mesh, so a frame
-    called without one makes no process group after the first."""
-    dev = init_world(device)
+    called without one makes no process group after the first.
+
+    ``devices`` takes the place of JAX's list of ``jax.Device``s: the
+    ranks' torch devices (or their names) in rank order, of which this
+    rank drives its own entry.  ``device`` (port-only) names this rank's
+    device directly and wins over ``devices``."""
+    dev = init_world(_rank_device(devices, device))
     n = int(np.prod(shape))
     world = dist.get_world_size()
     if n > world:
@@ -158,15 +177,18 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     return _meshes[key]
 
 
-def default_mesh(model_parallel: int = 1, device=None) -> Mesh:
+def default_mesh(devices: Optional[Sequence] = None,
+                 model_parallel: int = 1, *, device=None) -> Mesh:
     """Every rank as (rays, model); ``model_parallel`` = 1 is pure data
-    parallelism.  Uses the group that stands, else a world of one."""
+    parallelism.  Uses the group that stands, else a world of one.
+    ``devices`` and ``device`` as in :func:`make_mesh`."""
+    device = _rank_device(devices, device)
     init_world(device)
     n = dist.get_world_size()
     if n % model_parallel:
         raise ValueError("device count not divisible by model_parallel")
     return make_mesh((n // model_parallel, model_parallel),
-                     (RAY_AXIS, MODEL_AXIS), device)
+                     (RAY_AXIS, MODEL_AXIS), device=device)
 
 
 # ----------------------------------------------------------------------

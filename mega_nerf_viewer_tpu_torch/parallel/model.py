@@ -60,10 +60,12 @@ def tp_param_specs(params: MLPParams, mesh: Mesh,
 
 
 def mlp_forward_tp(params: MLPParams, cluster: int, x: torch.Tensor,
-                   mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+                   axis: str = MODEL_AXIS, *, mesh: Mesh) -> torch.Tensor:
     """One cluster's forward with ``params`` = this rank's share
     (:func:`tp_param_specs`); ``x`` [n, in] and the output are replicated
-    over the model axis (``model.py:60-84``)."""
+    over the model axis (``model.py:60-84``).  ``mesh`` (port-only,
+    required) is the mesh whose ``axis`` the shares split over; JAX reads
+    it from the enclosing ``shard_map``."""
     n_layers = params.n_layers
     group = mesh.group(axis)
     h = x
@@ -82,11 +84,12 @@ def mlp_forward_tp(params: MLPParams, cluster: int, x: torch.Tensor,
 
 
 def mlp_forward_all_tp(params: MLPParams, cluster_ids: torch.Tensor,
-                       x: torch.Tensor, mesh: Mesh,
-                       axis: str = MODEL_AXIS) -> torch.Tensor:
+                       x: torch.Tensor, axis: str = MODEL_AXIS, *,
+                       mesh: Mesh) -> torch.Tensor:
     """Every cluster's tensor-parallel forward on every sample, then a
     select by ``cluster_ids`` (``model.py:87-94``; the all-clusters route
-    of ``models.meganerf.mlp_forward_all``)."""
+    of ``models.meganerf.mlp_forward_all``).  ``mesh`` as in
+    :func:`mlp_forward_tp`."""
     C = params.n_clusters
     x0 = x.unsqueeze(0).expand(C, -1, -1)
     h = x0

@@ -54,7 +54,7 @@ def global_mesh(axis: str = RAY_AXIS, device=None) -> Mesh:
     """A 1-D mesh over every rank of every process (a world of one if no
     group stands)."""
     init_world(device)
-    return make_mesh((dist.get_world_size(),), (axis,), device)
+    return make_mesh((dist.get_world_size(),), (axis,), device=device)
 
 
 def _split(obj, leaves: list):
@@ -97,8 +97,8 @@ def _join(skel, leaves: list):
     return skel[1]
 
 
-def broadcast(obj, device=None):
-    """Process 0's ``obj`` on every rank (``multihost.py:333-341``): an
+def broadcast(pytree, *, device=None):
+    """Process 0's ``pytree`` on every rank (``multihost.py:333-341``): an
     :class:`~..n3tree.N3Tree`, :class:`~..models.meganerf.MLPParams`,
     leaf map, tensor, or lists, tuples and dicts of them.  Rank 0 first
     sends the structure with every tensor's shape and dtype
@@ -106,7 +106,7 @@ def broadcast(obj, device=None):
     into new tensors on ``device`` (default: where their own copy's
     tensors lie, else the rank's device), whatever their own copy held."""
     leaves: list = []
-    skel = _split(obj, leaves)
+    skel = _split(pytree, leaves)
     if device is None:
         device = leaves[0].device if leaves else local_device()
     meta = [(skel, [(tuple(t.shape), t.dtype) for t in leaves])]
@@ -123,13 +123,13 @@ def broadcast(obj, device=None):
         .view(t.dtype).reshape(t.shape) for t in recv])
 
 
-def replicate(obj, mesh: Optional[Mesh] = None):
-    """``obj`` with every tensor on the mesh's device (``multihost.py:
+def replicate(pytree, mesh: Optional[Mesh] = None):
+    """``pytree`` with every tensor on the mesh's device (``multihost.py:
     356-364``).  Do it once per tree and model: tensors already there pass
     through, so the frames never copy them again."""
     device = (mesh.device if mesh is not None else local_device())
     leaves: list = []
-    skel = _split(obj, leaves)
+    skel = _split(pytree, leaves)
     return _join(skel, [t.to(device) for t in leaves])
 
 

@@ -55,7 +55,7 @@ def make_frame_refine_step(mesh: Mesh, opt: RenderOptions):
         def mlp_apply(_params, cluster_ids, x):
             sl = ray_shard(mesh, x.shape[0])
             return gather_rays(mesh, mlp_forward_all_tp(
-                local, cluster_ids[sl], x[sl], mesh))
+                local, cluster_ids[sl], x[sl], mesh=mesh))
 
         new_tree, tracker, n_added = refine.expand_voxels_jit(
             tree, params, grid_dim, min_position, pos_range, opt,

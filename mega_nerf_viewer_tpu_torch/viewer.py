@@ -159,6 +159,20 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.index is None or b.index is None or a.index == b.index
 
 
+class _Backend:
+    """``Viewer.get_backend``.  On the class it is JAX's staticmethod
+    (``viewer.py:262-265``) and answers the default device: "CUDA" when a
+    card is visible, else "CPU".  On a viewer it answers the device that
+    viewer renders on.  A descriptor rather than a staticmethod with an
+    instance override set in ``__init__``: one name serves both calls, and
+    no per-viewer attribute has to follow a viewer's state."""
+
+    def __get__(self, viewer, owner=None):
+        if viewer is None:
+            return lambda: "CUDA" if torch.cuda.is_available() else "CPU"
+        return lambda: viewer.device.type.upper()
+
+
 class Viewer:
     """The headless viewer session on one device (``device=None``: the
     CUDA card; ``"cpu"`` runs the kernels' plain versions).  A tree on
@@ -274,9 +288,7 @@ class Viewer:
             self.set(tree, max_tree_capacity)
 
     # ------------------------------------------------------------------
-    def get_backend(self) -> str:
-        """The device type this viewer renders on ("CUDA" or "CPU")."""
-        return self.device.type.upper()
+    get_backend = _Backend()
 
     def _check_device(self, tree: N3Tree) -> None:
         if not _same_device(tree.device, self.device):

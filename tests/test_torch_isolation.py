@@ -61,6 +61,27 @@ def test_import_leaves_out_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_aerial_artifact_leaves_out_jax(tmp_path):
+    """``chip_smoke.aerial_artifact`` builds the aerial artifact (here at
+    depth 5) from ``gen_fixtures``' numpy fields without JAX."""
+    path = str(tmp_path / "aerial_d5.npz")
+    code = ("import os, sys\n"
+            "sys.path.insert(0, os.getcwd())\n"
+            "import chip_smoke\n"
+            f"_, cap = chip_smoke.aerial_artifact({path!r}, depth=5)\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
+            "or m.startswith('mega_nerf_viewer_tpu.')]\n"
+            "print(cap, bad)\n"
+            "sys.exit(1 if bad or cap < 100 else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert os.path.exists(path)
+
+
 def _sources():
     out = []
     for root, _, files in os.walk(PORT):

@@ -219,9 +219,9 @@ def tp_cases(out, mesh, inputs):
             device="cpu").params
         local = parallel.tp_param_specs(params, mesh)
         out[name] = gather_rays(mesh, parallel.mlp_forward_all_tp(
-            local, ids[sl], x[sl], mesh))
+            local, ids[sl], x[sl], mesh=mesh))
         out[name + "_c1"] = gather_rays(mesh, parallel.mlp_forward_tp(
-            local, 1, x[sl], mesh))
+            local, 1, x[sl], mesh=mesh))
     skip = PM.params_from_numpy(
         [inputs[f"skip_w{l}"] for l in range(4)],
         [inputs[f"skip_b{l}"] for l in range(4)], (2,), device="cpu")
@@ -229,7 +229,7 @@ def tp_cases(out, mesh, inputs):
     out["tp_skip_rep"] = np.int32(all(
         torch.equal(a, b) for a, b in zip(local.weights, skip.weights)))
     out["tp_skip"] = gather_rays(mesh, parallel.mlp_forward_all_tp(
-        local, ids[sl], x[sl], mesh))
+        local, ids[sl], x[sl], mesh=mesh))
 
 
 def refine_case(out, mesh, inputs):
