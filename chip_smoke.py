@@ -88,12 +88,16 @@ shapes of the main paths, and drives both paths of the port:
   the subs);
 * the aerial artifact (phase 23): ``gen_fixtures.make_big_scene_npz``'s
   175,656-chunk SH4 tree of depth 9, built without JAX
-  (:func:`aerial_artifact`) and loaded by ``N3Tree.open``; the committed
-  goldens (the exact 160x160 frame through kernel E, the fast 512x512
-  frame through A and B), ``bench.py``'s 1080p protocol with chunk-exact
-  budgets, A and B against their plain versions on its rays, the exact
-  frame and a level-7 map (A's resumed descent) against the leaf-map
-  frame, and the three frames' times with A's, B's and E's alone.
+  (``bench_torch.aerial_artifact``) and loaded by ``N3Tree.open``; the
+  committed goldens (the exact 160x160 frame through kernel E, the fast
+  512x512 frame through A and B), ``bench.py``'s 1080p protocol with
+  chunk-exact budgets, A and B against their plain versions on its rays,
+  the exact frame and a level-7 map (A's resumed descent) against the
+  leaf-map frame, and the three frames' times with A's, B's and E's alone;
+* ``bench_torch.py`` (phase 24), the port's benchmark entry point: its
+  timed loop under sync debug mode "error" on the shell and the aerial
+  artifact, then ``python3 bench_torch.py`` with no arguments in a fresh
+  process, its one JSON line checked and printed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -112,6 +116,8 @@ import time
 
 import numpy as np
 import torch
+
+from bench_torch import AERIAL_DEPTH, aerial_artifact
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -144,7 +150,6 @@ WIDTH, HEIGHT, FOCAL = 1920, 1080, 1111.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the aerial artifact (tests/fixtures/gen_fixtures.py make_big_scene_npz)
 # and gen_fixtures.aerial_camera()'s pose
-AERIAL_DEPTH = 9
 AERIAL_FOCAL = 150.0
 AERIAL_CENTER = (-0.9, 1.1, 1.5)
 CENTER = (-1.4, 0.1, 1.3)
@@ -275,31 +280,6 @@ def camera(cls, w, h, f):
     cam.center = np.asarray(CENTER, np.float32)
     cam._update()
     return cam
-
-
-def aerial_artifact(path, depth=AERIAL_DEPTH):
-    """Build the aerial artifact into the npz ``path`` without JAX:
-    ``tests/fixtures/gen_fixtures.py``'s ``make_big_scene_npz`` (its
-    occupancy and colour fields, its svox writer, basis 4, sigma 120)
-    over the port's ``field_tree_arrays``.  At depth 9 it is the
-    175,656-chunk tree that ``bench.py`` times as its ``aerial_*`` rider.
-    ``gen_fixtures`` is loaded by file path; nothing of it that imports the
-    JAX package is called.  Returns (path, chunks)."""
-    import importlib.util
-    from mega_nerf_viewer_tpu_torch.n3tree.synthetic import field_tree_arrays
-    spec = importlib.util.spec_from_file_location("gen_fixtures", os.path.join(
-        ROOT, "tests", "fixtures", "gen_fixtures.py"))
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
-    data, child, parent, scale, offset, fmt, depths = field_tree_arrays(
-        gen.big_occ_v, gen.big_rgb_v, depth=depth, basis_dim=4, sigma=120.0)
-    cap = data.shape[0]
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    gen.write_svox_npz(path, data, child.reshape(cap, 2, 2, 2),
-                       np.stack([parent, depths], axis=1),
-                       invradius=float(scale[0]), offset=offset,
-                       data_format=fmt.to_string())
-    return path, cap
 
 
 def aerial_camera(cls, w, h):
@@ -542,16 +522,19 @@ def main():
     switches_launches = switches_phase(P, kernels)
     torch.cuda.empty_cache()
     aerial_launches = aerial_phase(P, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(
+        dev, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
 
     # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
-    # 22 and 23), summed over the paths for the kernels that several paths
-    # run; kernel H is on no path (0)
+    # 22, 23 and 24), summed over the paths for the kernels that several
+    # paths run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
             rest_launches, sharded_launches, switches_launches,
-            aerial_launches))
+            aerial_launches, bench_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -3725,8 +3708,8 @@ def switches_phase(P, kernels):
 
 def aerial_phase(P, kernels, dev, smi):
     """Phase 23: the aerial artifact (175,656 chunks, depth 9, SH4), built
-    without JAX (:func:`aerial_artifact`) and loaded onto the card by
-    ``N3Tree.open``.  The committed goldens: the exact frame at 160x160
+    without JAX (``bench_torch.aerial_artifact``) and loaded onto the card
+    by ``N3Tree.open``.  The committed goldens: the exact frame at 160x160
     through kernel E, the fast frame at 512x512 through A and B.  Then
     ``bench.py``'s 1080p protocol (bench.py:249-392): the hint frame with
     ``max_dense`` escalation, ``order_from_hints``, chunk-exact
@@ -3982,6 +3965,73 @@ def aerial_phase(P, kernels, dev, smi):
         f"{be_by}, {100 * be / ms_e:.0f}%)")
     log(f"phase 23 in {time.perf_counter() - t_phase:.1f} s; launches "
         f"{launches}; peak memory {peak / 2**30:.2f} GiB")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 24: bench_torch.py, the port's benchmark entry point
+# ----------------------------------------------------------------------
+def bench_phase(dev, aerial_path):
+    """Phase 24: ``bench_torch.py``.  First its timed loop in this process
+    under sync debug mode "error" (:func:`no_host_sync`), at 1080p on the
+    shell (the ladder) and on phase 23's aerial artifact (chunk-exact
+    budgets), in pixel and in ray order: no frame of the loop waits on the
+    card.  Then ``python3 bench_torch.py`` with no arguments in a fresh
+    process, ``BENCH_AERIAL_FIXTURE`` naming the artifact: exit 0, one
+    stdout line, no ``error``, ``smoke`` or ``v5e8`` key, and the shell's
+    and the artifact's fps in both orders above 0.  Returns the bench
+    run's kernel launches (its ``# launches`` line on stderr)."""
+    import bench_torch
+    t_phase = time.perf_counter()
+    for source, what in ((8, "shell"), (aerial_path, "aerial")):
+        s = bench_torch.setup_source(source, WIDTH, HEIGHT)
+        for fn in (s.frame, s.frame_sorted):
+            fn()
+            acc = no_host_sync(lambda: bench_torch.chain(
+                fn, N_FRAMES, torch.zeros((), device=dev)))
+            check(bool(torch.isfinite(acc)), f"phase 24 {what}: checksum")
+        budgets = s.seg_counts if s.seg_counts is not None else s.segments
+        log(f"phase 24 {what}: the timed loop ({N_FRAMES} frames, pixel "
+            f"and ray order) ran with no host sync; hint budget "
+            f"{s.max_dense}, budgets {list(budgets)}")
+        del s, fn
+        torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    env.update(BENCH_AERIAL_FIXTURE=aerial_path, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        if line.startswith("# "):
+            log(f"phase 24 bench_torch.py stderr: {line}")
+    check(r.returncode == 0, f"bench_torch.py exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines")
+    rec = json.loads(lines[0])
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 24 card: {power}")
+    log(f"phase 24 bench_torch.py line: {lines[0]}")
+    check("error" not in rec and not rec.get("smoke"),
+          f"bench_torch.py record: {rec}")
+    for key in ("value", "sorted_mode_fps", "aerial_fps",
+                "aerial_sorted_mode_fps"):
+        check(rec.get(key, 0) > 0, f"bench_torch.py {key}: {rec.get(key)}")
+    check(not [k for k in rec if "v5e8" in k], "a v5e8 key in the record")
+    mark = bench_torch.LAUNCHES_MARK
+    launches = json.loads(next(ln for ln in r.stderr.splitlines()
+                               if ln.startswith(mark))[len(mark):])
+    check(launches["skip_prepass"] > 0 and launches["march"] > 0,
+          f"the bench run did not launch kernels A and B: {launches}")
+    log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s (the bench "
+        f"run {wall:.1f} s); launches {launches}")
     return launches
 
 

@@ -2,7 +2,7 @@
 
 The aerial artifact (175,656 chunks, depth 9, SH4) is
 ``tests/fixtures/gen_fixtures.py``'s ``make_big_scene_npz``, built here
-without JAX by ``chip_smoke.aerial_artifact`` (the port's
+without JAX by ``bench_torch.aerial_artifact`` (the port's
 ``field_tree_arrays``), as the card builds it.  The cases are the JAX
 suite's: ``test_golden.py``'s exact frame at 160x160 and fast frame at
 512x512 against the committed goldens, and ``test_scale.py``'s leaf map
@@ -31,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 sys.path.insert(0, REPO)
 sys.path.insert(0, FIXTURES)
+import bench_torch  # noqa: E402
 import chip_smoke  # noqa: E402
 import gen_fixtures  # noqa: E402
 from test_scale import _spike_tree as jax_spike_tree  # noqa: E402
@@ -53,7 +54,7 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def aerial(tmp_path_factory):
-    path, cap = chip_smoke.aerial_artifact(
+    path, cap = bench_torch.aerial_artifact(
         str(tmp_path_factory.mktemp("aerial") / "aerial_sh4_d9.npz"))
     return path, cap, P.N3Tree.open(path, device="cpu")
 

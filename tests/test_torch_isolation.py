@@ -62,13 +62,13 @@ def test_import_leaves_out_jax():
 
 
 def test_aerial_artifact_leaves_out_jax(tmp_path):
-    """``chip_smoke.aerial_artifact`` builds the aerial artifact (here at
+    """``bench_torch.aerial_artifact`` builds the aerial artifact (here at
     depth 5) from ``gen_fixtures``' numpy fields without JAX."""
     path = str(tmp_path / "aerial_d5.npz")
     code = ("import os, sys\n"
             "sys.path.insert(0, os.getcwd())\n"
-            "import chip_smoke\n"
-            f"_, cap = chip_smoke.aerial_artifact({path!r}, depth=5)\n"
+            "import bench_torch\n"
+            f"_, cap = bench_torch.aerial_artifact({path!r}, depth=5)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
             "or m.startswith('mega_nerf_viewer_tpu.')]\n"
@@ -82,11 +82,30 @@ def test_aerial_artifact_leaves_out_jax(tmp_path):
     assert os.path.exists(path)
 
 
+def test_bench_parent_leaves_out_torch():
+    """``bench_torch.py``'s supervisor imports the standard library only:
+    neither ``torch`` nor JAX nor either package."""
+    code = ("import os, sys\n"
+            "sys.path.insert(0, os.getcwd())\n"
+            "import bench_torch\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'numpy', 'mega_nerf_viewer_tpu', "
+            "'mega_nerf_viewer_tpu_torch')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _sources():
     out = []
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     out.append(os.path.join(REPO, "chip_smoke.py"))
+    out.append(os.path.join(REPO, "bench_torch.py"))
     out.append(os.path.join(REPO, "tests", "torch_parallel_worker.py"))
     return out
 
@@ -118,7 +137,8 @@ def test_no_source_imports_jax():
             os.path.join("parallel", "guided.py"),
             os.path.join("parallel", "motion.py"),
             os.path.join("parallel", "multihost.py"),
-            os.path.join("..", "tests", "torch_parallel_worker.py")} <= names
+            os.path.join("..", "tests", "torch_parallel_worker.py"),
+            os.path.join("..", "bench_torch.py")} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -168,6 +188,8 @@ def _entry_points(tmp_path):
     from mega_nerf_viewer_tpu_torch.probes import exact_breakdown, \
         gather_probe, prepass_breakdown
     from mega_nerf_viewer_tpu_torch.utils.tuning import device_tuning
+    sys.path.insert(0, REPO)
+    import bench_torch
     fixture = os.path.join(REPO, "tests", "fixtures", "digger_sh4.npz")
     return [
         lambda: P.shell_tree(depth=2),
@@ -198,10 +220,11 @@ def _entry_points(tmp_path):
                           "--sharded"]),
         lambda: P.MegaNeRFModel.from_torchscript(
             _fallback_container(tmp_path)),
+        lambda: bench_torch.setup_source(2, 8, 8),
     ]
 
 
-@pytest.mark.parametrize("i", range(23))
+@pytest.mark.parametrize("i", range(24))
 def test_entry_point_without_device_needs_a_card(i, monkeypatch, tmp_path):
     import torch.distributed as dist
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -71,6 +71,10 @@ def test_viewer_guided_segmented_collect():
                                atol=PIX_TOL)
     for v in (jv, pv, jo, po):
         v.camera.move(np.array([0.05, 0.0, 0.0]))
+    # the order and ladder this frame collects with: after the step the
+    # Viewer holds the next pose's (viewer.py:1035-1041 rebuilds both
+    # from this frame's hints), so they are read before it
+    order, ladder = pv._guided_order, pv._guided_segments
     img = step(jv, pv)[1]
     np.testing.assert_allclose(np.asarray(jo.render()), img, rtol=0,
                                atol=PIX_TOL)
@@ -81,11 +85,11 @@ def test_viewer_guided_segmented_collect():
                                       _arr(o._guided_order[0]))
     cam, opt = pv.camera, pv.options
     frames = []
-    for segs in (None, pv._guided_segments):
+    for segs in (None, ladder):
         cache = PG.collect_and_query_fast(
             pv.tree, pv._leaf_map, pv.model, cam, opt,
             chunk_size=pv.fast_chunk_size, skip_table=pv._skip_table,
-            order=pv._guided_order, segments=segs)
+            order=order, segments=segs)
         frames.append(_arr(PG.composite_frame(pv.tree, cam, opt, cache)))
     np.testing.assert_array_equal(frames[0], frames[1])
     np.testing.assert_array_equal(frames[1], img)
