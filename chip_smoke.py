@@ -97,7 +97,22 @@ shapes of the main paths, and drives both paths of the port:
 * ``bench_torch.py`` (phase 24), the port's benchmark entry point: its
   timed loop under sync debug mode "error" on the shell and the aerial
   artifact, then ``python3 bench_torch.py`` with no arguments in a fresh
-  process, its one JSON line checked and printed.
+  process, its one JSON line checked and printed;
+* the benchmark scripts and the examples (phase 25): each
+  ``benchmarks_torch/`` script at its defaults in a fresh process (its one
+  JSON line with the JAX script's keys less the named drops, no ``smoke``
+  or ``error``, the kernels it reaches launched, its invariant: equal
+  ordered and segmented sample counts, every parity probe within 1e-3,
+  hint rebuilds, refinement growth, one device), then
+  ``examples/quickstart_torch.py`` (every PNG written) and
+  ``examples/multihost_render_torch.py`` as two gloo ranks sharing the
+  card (this script started again with ``--multihost-rank``), both ranks'
+  frames against the single-device frame; each line logged with the
+  script's wall seconds beside the card's name and power limit.  In this
+  process, uncounted: ``orbit4k.py``'s first pose at 3840x2160 (its hint
+  frame and its settled sharded frame) and ``refine_throughput.py``'s
+  vote frame, each through the script's own calls with kernels A and B
+  and again with their plain versions on the same card inputs.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -107,6 +122,8 @@ error, times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises; there is no CPU fallback.  It needs no network.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -299,6 +316,10 @@ def main():
     if sys.argv[1:2] == ["--sharded-rank"]:
         # a rank of phase 21's two-rank run, started by phase 21 itself
         return sharded_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        # a rank of phase 25's multihost example, started by phase 25
+        return multihost_rank_main(int(sys.argv[2]), sys.argv[3],
+                                   sys.argv[4])
     import mega_nerf_viewer_tpu_torch as P
     from mega_nerf_viewer_tpu_torch import kernels
     from mega_nerf_viewer_tpu_torch.ops import accel
@@ -525,16 +546,18 @@ def main():
     torch.cuda.empty_cache()
     bench_launches = bench_phase(
         dev, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
+    torch.cuda.empty_cache()
+    scripts_launches = scripts_phase(P, kernels, smi)
 
     # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
-    # 22, 23 and 24), summed over the paths for the kernels that several
-    # paths run; kernel H is on no path (0)
+    # 22, 23, 24 and 25), summed over the paths for the kernels that
+    # several paths run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
             rest_launches, sharded_launches, switches_launches,
-            aerial_launches, bench_launches))
+            aerial_launches, bench_launches, scripts_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -4033,6 +4056,320 @@ def bench_phase(dev, aerial_path):
     log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s (the bench "
         f"run {wall:.1f} s); launches {launches}")
     return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 25: the benchmark scripts and the examples
+# ----------------------------------------------------------------------
+# the kernels each benchmarks_torch/ script reaches at its defaults (its
+# line's keys: benchmarks_torch/_overrides_torch.py)
+SCRIPTS = {
+    "guided1080p": ("skip_prepass", "collect", "compact_composite"),
+    "motion1080p": ("skip_prepass", "march"),
+    "motion_guided1080p": ("skip_prepass", "collect", "compact_composite"),
+    "foveated1080p": ("skip_prepass", "march"),
+    "refine_throughput": ("march",),
+    "parity": ("march",),
+    "orbit4k": ("skip_prepass", "march"),
+}
+QUICKSTART_KERNELS = ("skip_prepass", "march", "collect",
+                      "compact_composite", "exact_march")
+MULTIHOST_KERNELS = ("march",)
+
+
+def script_invariants(name, rec, stderr):
+    """Phase 25's check of each script's own invariant."""
+    if name == "guided1080p":
+        seg = [ln for ln in stderr.splitlines()
+               if ln.startswith("# mlp_samples: ")]
+        check(len(seg) == 1, "guided1080p printed no segmented count")
+        n_seg = int(seg[0].rsplit(" ", 1)[1])
+        check(n_seg == rec["mlp_samples"] > 0,
+              f"guided1080p: ordered {rec['mlp_samples']} samples, "
+              f"segmented {n_seg}")
+    elif name == "parity":
+        check(rec["frac_within_1e-3"] == 1.0 and rec["max_err"] <= 1e-3,
+              f"parity: {rec}")
+    elif name == "motion1080p":
+        check(rec["hint_rebuilds"] > 0, "motion1080p rebuilt no hints")
+    elif name == "refine_throughput":
+        check(rec["total_added"] > 0, "refine_throughput added nothing")
+    elif name == "orbit4k":
+        check(rec["devices"] == 1, f"orbit4k on {rec['devices']} devices")
+
+
+def load_script(name):
+    """``benchmarks_torch/<name>.py`` loaded by file path (its prelude puts
+    its helper module on ``sys.path``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_bench_{name}",
+        os.path.join(ROOT, "benchmarks_torch", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def plain_kernels(kernels):
+    """Within the block kernels A's and B's wrappers run their plain
+    versions on the card's tensors (A's gated launch as the CPU path
+    branches it), so a path's own calls give the plain path's result on
+    the same inputs.  Fails if a kernel launched inside the block."""
+    from unittest import mock
+    from mega_nerf_viewer_tpu_torch.ops import accel
+    from mega_nerf_viewer_tpu_torch.ops import skip_prepass as sp
+
+    def march(*args, votes=None, render_depth=False, gate=None, into=None):
+        if gate is not None and not bool((gate != 0).any()):
+            return (into[0], torch.zeros((), dtype=torch.int32,
+                                         device=into[0].device)) \
+                + tuple(into[1:])
+        res = accel.render_rays_fast_reference(
+            *args, chunk_size=1 << 20, votes=votes,
+            render_depth=render_depth)
+        if into is None:
+            return res
+        for buf, r in zip(into, res[:1] + res[2:]):
+            buf.copy_(r)
+        return (into[0], res[1]) + tuple(into[1:])
+
+    saved = dict(kernels.LAUNCHES)
+    with mock.patch.object(kernels, "march", march), \
+            mock.patch.object(kernels, "skip_prepass",
+                              sp.entry_skip_prepass_reference):
+        yield
+    check(dict(kernels.LAUNCHES) == saved,
+          "a kernel launched inside the plain path")
+
+
+def script_paths_against_plain(P, kernels, dev):
+    """Phase 25 in this process, uncounted: ``orbit4k.py``'s first pose at
+    its defaults (3840x2160, depth 8, a world of one) and
+    ``refine_throughput.py``'s first vote frame (512x512, the depth-7
+    tree of capacity 400,000), each through the script's own calls with
+    kernels A and B, then again with their plain versions on the same
+    card inputs: integers equal, pixels within 1e-6."""
+    import torch.distributed as dist
+    from mega_nerf_viewer_tpu_torch.ops import accel
+    t0 = time.perf_counter()
+    orbit = load_script("orbit4k")
+    s = orbit.scene(device=dev)
+    orbit.next_pose(s, 8)
+    img_k, md, *hints_k = uncounted(kernels, lambda: orbit.hint_frame(s))
+    with plain_kernels(kernels):
+        img_p, md_p, *hints_p = orbit.hint_frame(s, md)
+    check(md_p == md, f"orbit4k plain hint frame settled at {md_p}, the "
+          f"kernels' at {md}")
+    for name, a, b in zip(("steps", "records", "skips"), hints_k, hints_p):
+        check(torch.equal(a, b), f"orbit4k hint frame {name} differ from "
+              f"the plain path")
+    err_h = float((img_k - img_p).abs().max())
+    check(err_h <= 1e-6, f"orbit4k hint frame differs by {err_h}")
+    order = accel.order_from_hints(*hints_k)
+    img_s, segments = uncounted(kernels, lambda: orbit.settle(s, order))
+    with plain_kernels(kernels):
+        img_sp, ov_p = orbit.sharded_frame(s, order, segments)
+    check(not bool(ov_p.any()), "orbit4k plain sharded frame overflowed")
+    err_s = float((img_s - img_sp).abs().max())
+    err_sh = float((img_s - img_k).abs().max())
+    check(err_s <= 1e-6, f"orbit4k settled sharded frame differs from the "
+          f"plain path by {err_s}")
+    check(err_sh <= 1e-6, f"orbit4k settled sharded frame differs from "
+          f"its hint frame by {err_sh}")
+    steps, nrec, skips = (int(h.sum()) for h in hints_k)
+    log(f"phase 25 orbit4k pose 0 at {s.cam.width}x{s.cam.height} against "
+        f"the plain path: hint frame at max_dense {md}, {steps} steps, "
+        f"{nrec} records, {skips} skips equal, max abs diff {err_h:.3e}; "
+        f"settled sharded frame (world {s.world}, segments "
+        f"{list(segments)}) max abs diff {err_s:.3e}, {err_sh:.3e} to the "
+        f"hint frame")
+    del s, img_k, img_p, img_s, img_sp, hints_k, hints_p, order
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    refine = load_script("refine_throughput")
+    r = refine.scene(device=dev)
+    lm = P.build_leaf_map(r.tree)
+    vk = uncounted(kernels, lambda: refine.vote_frame(r, r.tree, lm))
+    with plain_kernels(kernels):
+        vp = refine.vote_frame(r, r.tree, lm)
+    for name in ("overflow", "steps", "nrec", "split_vote", "sample_vote"):
+        check(torch.equal(getattr(vk, name), getattr(vp, name)),
+              f"refine vote frame {name} differs from the plain path")
+    err_v = float((vk.out - vp.out).abs().max())
+    check(err_v <= 1e-6, f"refine vote frame differs by {err_v}")
+    log(f"phase 25 refine_throughput vote frame ({r.dirs.shape[0]} rays, "
+        f"capacity {r.tree.max_capacity}) against the plain path: overflow "
+        f"{int(vk.overflow)}, {int(vk.steps.sum())} steps, "
+        f"{int(vk.nrec.sum())} records, split and sample votes equal, max "
+        f"abs diff {err_v:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del r, lm, vk, vp
+    torch.cuda.empty_cache()
+
+
+def multihost_rank_main(rank, port, outdir):
+    """A rank of phase 25's multihost example: the example's ``main`` (two
+    ranks on the one card ask for gloo), then its kernel launches as JSON
+    in ``outdir``."""
+    import importlib.util
+    from mega_nerf_viewer_tpu_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        "multihost_render_torch",
+        os.path.join(ROOT, "examples", "multihost_render_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    kernels.reset_launch_counts()
+    ex.main(rank, int(port), outdir=outdir)
+    torch.cuda.synchronize()
+    with open(os.path.join(outdir, f"launches{rank}.json"), "w") as f:
+        json.dump(dict(kernels.LAUNCHES), f)
+    return 0
+
+
+def scripts_phase(P, kernels, smi):
+    """Phase 25: each ``benchmarks_torch/`` script at its defaults in a
+    fresh process (exit 0, ONE JSON line without ``smoke`` or ``error``,
+    JAX's keys less the named drops, the kernels it reaches launched, its
+    invariant), then ``examples/quickstart_torch.py`` in this process
+    (every PNG written) and ``examples/multihost_render_torch.py`` as two
+    ranks sharing the card under gloo (both ranks' frames equal to this
+    process's single-device frame).  Returns the launches of the scripts'
+    runs and the examples', summed."""
+    import importlib.util
+    from mega_nerf_viewer_tpu_torch.utils.png import read_png
+    t_phase = time.perf_counter()
+    total = {}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    env["PYTHONUNBUFFERED"] = "1"
+    mark = "# launches "
+    contract = load_script("_overrides_torch")
+    for name, needs in SCRIPTS.items():
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "benchmarks_torch",
+                                          name + ".py")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"{name} exited {r.returncode}: "
+              f"{r.stderr[-3000:]}")
+        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+        check(len(lines) == 1, f"{name} printed {len(lines)} lines")
+        rec = json.loads(lines[0])
+        check("smoke" not in rec and "error" not in rec,
+              f"{name} record: {rec}")
+        check(rec.get("metric") == contract.JAX_KEYS[name][0]
+              and set(rec) == contract.port_keys(name),
+              f"{name} keys {sorted(rec)} are not JAX's less the drops")
+        launches = json.loads(next(
+            ln for ln in r.stderr.splitlines()
+            if ln.startswith(mark))[len(mark):])
+        missing = [k for k in needs if launches[k] == 0]
+        check(not missing, f"{name}: {missing} never launched: {launches}")
+        script_invariants(name, rec, r.stderr)
+        add_launches(total, launches)
+        card = next((ln for ln in r.stderr.splitlines()
+                     if ln.startswith("# card: ")), "# card: ?")
+        log(f"phase 25 {name} ({card[2:]}; {wall:.1f} s): {lines[0]}")
+        for ln in r.stderr.splitlines():
+            if ln.startswith("# ") and not ln.startswith(("# card: ", mark)):
+                log(f"phase 25 {name} stderr: {ln}")
+        log(f"phase 25 {name} launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+
+    # two of the scripts' paths against their plain versions, uncounted
+    script_paths_against_plain(P, kernels, torch.device("cuda"))
+
+    # the quickstart, in this process
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(ROOT, "examples",
+                                         "quickstart_torch.py"))
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            res = qs.main(td)
+        check(said.getvalue().count("wrote ") == len(qs.STEPS),
+              f"quickstart said: {said.getvalue()}")
+        launches = read_launches(kernels, QUICKSTART_KERNELS,
+                                 "phase 25 quickstart")
+        for name in qs.STEPS:
+            img = read_png(os.path.join(td, f"{name}.png"))
+            check(img.shape == (400, 400, 4), f"quickstart {name}.png "
+                  f"{img.shape}")
+        check(os.path.exists(res.state), "no session checkpoint")
+    check(res.capacity[1] > res.capacity[0], "quickstart refined nothing")
+    add_launches(total, launches)
+    log(f"phase 25 quickstart ({smi}; {time.perf_counter() - t0:.1f} s): "
+        f"{len(qs.STEPS)} PNGs of 400x400 written, refinement "
+        f"{res.capacity[0]} -> {res.capacity[1]} chunks; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+
+    # the multihost example: two ranks on the one card
+    spec = importlib.util.spec_from_file_location(
+        "multihost_render_torch", os.path.join(ROOT, "examples",
+                                               "multihost_render_torch.py"))
+    mh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mh)
+    tree = P.sphere_tree(basis_dim=4, depth=4)
+    cam, opt = mh.frame_setup()
+    single = uncounted(kernels, lambda: P.render_frame_fast(
+        tree, P.build_leaf_map(tree), cam, opt, max_dense=32,
+        chunk_size=0)[0]).cpu().numpy()
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        errs = [open(os.path.join(td, f"rank{r}.err"), "w+")
+                for r in (0, 1)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+             str(r), str(port), td], cwd=ROOT,
+            stdout=subprocess.DEVNULL, stderr=errs[r]) for r in (0, 1)]
+        deadline = time.perf_counter() + 300
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, e) in enumerate(zip(procs, errs)):
+            e.seek(0)
+            check(p.returncode == 0,
+                  f"multihost rank {r} failed:\n{e.read()[-3000:]}")
+            e.close()
+        frames = [np.load(os.path.join(td, f"frame_rank{r}.npy"))
+                  for r in (0, 1)]
+        check(os.path.exists(os.path.join(td, "multihost_frame.png")),
+              "multihost rank 0 wrote no PNG")
+        with open(os.path.join(td, "launches0.json")) as f:
+            launches = json.load(f)
+    for r, fr in enumerate(frames):
+        err = float(np.abs(fr - single).max())
+        check(fr.shape == single.shape and err <= 1e-6,
+              f"multihost rank {r} frame differs from one process's by "
+              f"{err}")
+    missing = [k for k in MULTIHOST_KERNELS if launches[k] == 0]
+    check(not missing, f"multihost: {missing} never launched: {launches}")
+    add_launches(total, launches)
+    same = all(np.array_equal(fr, single) for fr in frames)
+    log(f"phase 25 multihost ({smi}; {time.perf_counter() - t0:.1f} s): "
+        f"two gloo ranks on the card, both frames "
+        f"{'bit-equal to' if same else 'within 1e-6 of'} the single-device "
+        f"frame, alpha max {float(single[..., 3].max()):.3f}; rank 0 "
+        f"launches { {k: n for k, n in launches.items() if n} }")
+    log(f"phase 25 in {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return total
 
 
 if __name__ == "__main__":

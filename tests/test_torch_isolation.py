@@ -11,6 +11,12 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mega_nerf_viewer_tpu_torch")
+# the port's benchmark scripts and examples
+BENCH = os.path.join(REPO, "benchmarks_torch")
+BENCH_SCRIPTS = ("_overrides_torch.py", "foveated1080p.py", "guided1080p.py",
+                 "motion1080p.py", "motion_guided1080p.py", "orbit4k.py",
+                 "parity.py", "refine_throughput.py")
+EXAMPLES = ("quickstart_torch.py", "multihost_render_torch.py")
 IMPORT_RE = re.compile(
     r"^\s*(import|from)\s+(jax|mega_nerf_viewer_tpu)(\.|\s|$)", re.M)
 
@@ -82,6 +88,30 @@ def test_aerial_artifact_leaves_out_jax(tmp_path):
     assert os.path.exists(path)
 
 
+def test_benchmark_scripts_leave_out_jax():
+    """Loading every ``benchmarks_torch/`` script and both port examples
+    (their entry functions' imports included) loads no JAX module."""
+    code = ("import importlib.util, os, sys\n"
+            f"paths = {[os.path.join(BENCH, f) for f in BENCH_SCRIPTS]!r}"
+            f" + {[os.path.join(REPO, 'examples', f) for f in EXAMPLES]!r}\n"
+            "for i, p in enumerate(paths):\n"
+            "    spec = importlib.util.spec_from_file_location(f'm{i}', p)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
+            "import mega_nerf_viewer_tpu_torch.parallel.multihost, "
+            "mega_nerf_viewer_tpu_torch.ops.oracle, bench_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
+            "or m.startswith('mega_nerf_viewer_tpu.')]\n"
+            "print(len(paths), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_bench_parent_leaves_out_torch():
     """``bench_torch.py``'s supervisor imports the standard library only:
     neither ``torch`` nor JAX nor either package."""
@@ -107,6 +137,9 @@ def _sources():
     out.append(os.path.join(REPO, "chip_smoke.py"))
     out.append(os.path.join(REPO, "bench_torch.py"))
     out.append(os.path.join(REPO, "tests", "torch_parallel_worker.py"))
+    out += [os.path.join(BENCH, f) for f in sorted(os.listdir(BENCH))
+            if f.endswith(".py")]
+    out += [os.path.join(REPO, "examples", f) for f in EXAMPLES]
     return out
 
 
@@ -139,6 +172,9 @@ def test_no_source_imports_jax():
             os.path.join("parallel", "multihost.py"),
             os.path.join("..", "tests", "torch_parallel_worker.py"),
             os.path.join("..", "bench_torch.py")} <= names
+    assert {os.path.join("..", "benchmarks_torch", f)
+            for f in BENCH_SCRIPTS} <= names
+    assert {os.path.join("..", "examples", f) for f in EXAMPLES} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
