@@ -112,7 +112,17 @@ shapes of the main paths, and drives both paths of the port:
   process, uncounted: ``orbit4k.py``'s first pose at 3840x2160 (its hint
   frame and its settled sharded frame) and ``refine_throughput.py``'s
   vote frame, each through the script's own calls with kernels A and B
-  and again with their plain versions on the same card inputs.
+  and again with their plain versions on the same card inputs;
+* the motion probes (phase 26): each ``tools_torch/`` probe at its
+  defaults in a fresh process, its lines forwarded: ``motion_phase_timing.py``
+  (stages A-G of the 1080p motion loop, each alone, device and host ms and
+  launches), ``motion_viewer_probe.py`` (the Viewer's moved poses split by
+  its wrapped calls: re-hint poses into ``motion``, dilate poses into
+  ``dilate``, ``order`` and ``frame``; the headroom experiment) and
+  ``probe_motion_margin.py`` on phase 23's aerial artifact (the world-of-one
+  sharded re-hint pose at margin 1 and 0); then, in this process and
+  uncounted, ``motion_phase_timing.py``'s C3 frame against the same call
+  with kernels A and B swapped for their plain versions.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -548,16 +558,20 @@ def main():
         dev, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
     torch.cuda.empty_cache()
     scripts_launches = scripts_phase(P, kernels, smi)
+    torch.cuda.empty_cache()
+    probes_launches = probes_phase(
+        kernels, smi, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
 
     # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
-    # 22, 23, 24 and 25), summed over the paths for the kernels that
+    # 22, 23, 24, 25 and 26), summed over the paths for the kernels that
     # several paths run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
             frame_launches, guided_launches, refine_launches,
             viewer_launches, viewer_guided_launches, motion_launches,
             rest_launches, sharded_launches, switches_launches,
-            aerial_launches, bench_launches, scripts_launches))
+            aerial_launches, bench_launches, scripts_launches,
+            probes_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -4369,6 +4383,132 @@ def scripts_phase(P, kernels, smi):
         f"launches { {k: n for k, n in launches.items() if n} }")
     log(f"phase 25 in {time.perf_counter() - t_phase:.1f} s; launches "
         f"{ {k: n for k, n in total.items() if n} }")
+    return total
+
+
+# ----------------------------------------------------------------------
+# Phase 26: the motion probes
+# ----------------------------------------------------------------------
+# each tools_torch/ probe and the kernels it reaches at its defaults (the
+# margin probe gets phase 23's artifact)
+PROBES = {
+    "motion_phase_timing": ("march",),
+    "motion_viewer_probe": ("skip_prepass", "march"),
+    "probe_motion_margin": ("skip_prepass", "march"),
+}
+PHASE_STAGES = ("A", "B", "C", "C2", "C3", "D", "D2", "E", "E2", "F", "G")
+JAX_WRAPS = {"dilate", "order", "frame"}
+
+
+def probe_invariants(name, rec):
+    """Phase 26's check of each probe's own record."""
+    if name == "motion_phase_timing":
+        check(tuple(rec["stages"]) == PHASE_STAGES,
+              f"motion_phase_timing stages {list(rec['stages'])}")
+        check(all(st["device_ms"] is not None and st["device_ms"] >= 0
+                  for st in rec["stages"].values()),
+              "motion_phase_timing: a stage has no device time")
+        check(rec["stages"]["C3"]["launches"].get("march", 0) > 0,
+              "motion_phase_timing: the C3 frame launched no march")
+    elif name == "motion_viewer_probe":
+        check(set(rec["headroom"]) == {"headroom", "NO-headroom"},
+              "motion_viewer_probe ran no headroom experiment")
+        rehint, dilate = rec["poses"]["rehint"], rec["poses"]["dilate"]
+        check(len(rehint) == len(dilate) == 6, "motion_viewer_probe poses")
+        check(all(set(p["split"]) == {"motion"} for p in rehint),
+              f"motion_viewer_probe: a re-hint pose did not split into "
+              f"motion alone: {[p['split'] for p in rehint]}")
+        check(all(p["split"] and set(p["split"]) <= JAX_WRAPS
+                  for p in dilate)
+              and any(set(p["split"]) == JAX_WRAPS for p in dilate),
+              f"motion_viewer_probe: the dilate poses did not split into "
+              f"the three JAX stages: {[p['split'] for p in dilate]}")
+        check(all(p["finite"] for m in (rehint, dilate) for p in m),
+              "motion_viewer_probe: a pose has non-finite pixels")
+    elif name == "probe_motion_margin":
+        check(rec["world"] == 1 and set(rec["margins"]) == {"1", "0"},
+              f"probe_motion_margin: world {rec.get('world')}, margins "
+              f"{list(rec['margins'])}")
+        for m, r in rec["margins"].items():
+            check(r["overflow"] <= r["tol"],
+                  f"probe_motion_margin margin {m} did not settle: {r}")
+
+
+def phase_c3_against_plain(kernels):
+    """``motion_phase_timing.py``'s C3 frame (the directional motion order
+    at headroom budgets, no skip table: kernel A) at its defaults, then the
+    same call with A and B swapped for their plain versions on the same
+    card inputs: overflow counts and packed hints equal, pixels within
+    1e-6.  Uncounted."""
+    import importlib.util
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_tool_motion_phase_timing",
+        os.path.join(ROOT, "tools_torch", "motion_phase_timing.py"))
+    mpt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mpt)
+    ns = uncounted(kernels, lambda: mpt.setup(device="cuda"))
+
+    def c3():
+        return mpt.frame(ns, ns.order_md, ns.segs_motion_dir, "packed")
+    img_k, ov_k, ph_k = uncounted(kernels, c3)
+    with plain_kernels(kernels):
+        img_p, ov_p, ph_p = c3()
+    check(torch.equal(ov_k, ov_p), f"C3 overflow counts {ov_k.tolist()} "
+          f"against the plain path's {ov_p.tolist()}")
+    check(torch.equal(ph_k, ph_p), "C3 packed hints differ from the plain "
+          "path's")
+    err = float((img_k - img_p).abs().max())
+    check(err <= 1e-6, f"C3 frame differs from the plain path by {err}")
+    log(f"phase 26 motion_phase_timing C3 frame against the plain path: "
+        f"segments {[(float(f), int(b)) for f, b in ns.segs_motion_dir]}, "
+        f"overflow counts {ov_k.tolist()} equal, packed hints equal, max "
+        f"abs diff {err:.3e} ({time.perf_counter() - t0:.1f} s)")
+    del ns, img_k, img_p, ph_k, ph_p
+    torch.cuda.empty_cache()
+
+
+def probes_phase(kernels, smi, aerial_path):
+    """Phase 26: each ``tools_torch/`` probe at its defaults in a fresh
+    process (exit 0, its lines forwarded, its JSON line without ``smoke``,
+    the kernels it reaches launched, its invariant), the margin probe on
+    phase 23's aerial artifact; then the C3 frame against the plain path.
+    Returns the probes' launches, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    env["PYTHONUNBUFFERED"] = "1"
+    for name, needs in PROBES.items():
+        args = [aerial_path] if name == "probe_motion_margin" else []
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools_torch", name + ".py")]
+            + args, cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"{name} exited {r.returncode}: "
+              f"{r.stderr[-3000:]}")
+        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+        check(lines and lines[-1] == "done", f"{name} did not finish: "
+              f"{lines[-3:]}")
+        recs = [ln for ln in lines if ln.startswith("{")]
+        check(len(recs) == 1, f"{name} printed {len(recs)} JSON lines")
+        rec = json.loads(recs[0])
+        check("smoke" not in rec, f"{name} ran as a smoke run")
+        for ln in lines:
+            if not ln.startswith("{") and ln != "done":
+                log(f"phase 26 {name}: {ln}")
+        launches = rec["launches"]
+        missing = [k for k in needs if launches[k] == 0]
+        check(not missing, f"{name}: {missing} never launched: {launches}")
+        probe_invariants(name, rec)
+        add_launches(total, launches)
+        log(f"phase 26 {name} ({rec['card']}; {wall:.1f} s) launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+    phase_c3_against_plain(kernels)
+    log(f"phase 26 in {time.perf_counter() - t_phase:.1f} s ({smi}); "
+        f"launches { {k: n for k, n in total.items() if n} }")
     return total
 
 

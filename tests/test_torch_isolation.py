@@ -17,6 +17,10 @@ BENCH_SCRIPTS = ("_overrides_torch.py", "foveated1080p.py", "guided1080p.py",
                  "motion1080p.py", "motion_guided1080p.py", "orbit4k.py",
                  "parity.py", "refine_throughput.py")
 EXAMPLES = ("quickstart_torch.py", "multihost_render_torch.py")
+# the port's motion probes
+TOOLS = os.path.join(REPO, "tools_torch")
+TOOL_SCRIPTS = ("_stages_torch.py", "motion_phase_timing.py",
+                "motion_viewer_probe.py", "probe_motion_margin.py")
 IMPORT_RE = re.compile(
     r"^\s*(import|from)\s+(jax|mega_nerf_viewer_tpu)(\.|\s|$)", re.M)
 
@@ -112,6 +116,79 @@ def test_benchmark_scripts_leave_out_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_tools_leave_out_jax():
+    """Loading every ``tools_torch/`` probe (with the port modules their
+    runs import) loads no JAX module."""
+    code = ("import importlib.util, os, sys\n"
+            f"paths = {[os.path.join(TOOLS, f) for f in TOOL_SCRIPTS]!r}\n"
+            "for i, p in enumerate(paths):\n"
+            "    spec = importlib.util.spec_from_file_location(f't{i}', p)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
+            "import mega_nerf_viewer_tpu_torch.viewer, "
+            "mega_nerf_viewer_tpu_torch.parallel.motion, "
+            "mega_nerf_viewer_tpu_torch.utils.tuning, bench_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'mega_nerf_viewer_tpu' "
+            "or m.startswith('mega_nerf_viewer_tpu.')]\n"
+            "print(len(paths), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _load_tool(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"isolated_tool_{name}", os.path.join(TOOLS, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PROBES = ("motion_phase_timing", "motion_viewer_probe",
+          "probe_motion_margin")
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_tool_without_card_needs_a_card(name, monkeypatch):
+    """A probe raises before it renders anything when no card is present
+    and ``BENCH_FORCE_CPU`` is unset, whatever the other knobs say, and
+    starts no process group."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    mod = _load_tool(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("BENCH_FORCE_CPU", raising=False)
+    monkeypatch.setenv("BENCH_WH", "32x18")
+    monkeypatch.setenv("BENCH_DEPTH", "3")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["3"] if name == "probe_motion_margin" else [])
+    assert not out.getvalue().strip()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_tool_without_card_exits_non_zero(name):
+    """As a process with no card and no ``BENCH_FORCE_CPU``: a non-zero
+    exit, an error naming the missing device, nothing on stdout."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.pop("PYTHONPATH", None)
+    env.update(CUDA_VISIBLE_DEVICES="", BENCH_WH="32x18", BENCH_DEPTH="3")
+    r = subprocess.run([sys.executable, os.path.join(TOOLS, name + ".py")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not r.stdout.strip()
+
+
 def test_bench_parent_leaves_out_torch():
     """``bench_torch.py``'s supervisor imports the standard library only:
     neither ``torch`` nor JAX nor either package."""
@@ -140,6 +217,8 @@ def _sources():
     out += [os.path.join(BENCH, f) for f in sorted(os.listdir(BENCH))
             if f.endswith(".py")]
     out += [os.path.join(REPO, "examples", f) for f in EXAMPLES]
+    out += [os.path.join(TOOLS, f) for f in sorted(os.listdir(TOOLS))
+            if f.endswith(".py")]
     return out
 
 
@@ -175,6 +254,8 @@ def test_no_source_imports_jax():
     assert {os.path.join("..", "benchmarks_torch", f)
             for f in BENCH_SCRIPTS} <= names
     assert {os.path.join("..", "examples", f) for f in EXAMPLES} <= names
+    assert {os.path.join("..", "tools_torch", f)
+            for f in TOOL_SCRIPTS} <= names
     for path in srcs:
         with open(path) as f:
             text = f.read()
