@@ -93,7 +93,8 @@ shapes of the main paths, and drives both paths of the port:
   512x512 frame through A and B), ``bench.py``'s 1080p protocol with
   chunk-exact budgets, A and B against their plain versions on its rays,
   the exact frame and a level-7 map (A's resumed descent) against the
-  leaf-map frame, and the three frames' times with A's, B's and E's alone;
+  leaf-map frame, and the three frames' times (and the leaf-map frame in
+  ray order) with A's, B's and E's alone;
 * ``bench_torch.py`` (phase 24), the port's benchmark entry point: its
   timed loop under sync debug mode "error" on the shell and the aerial
   artifact, then ``python3 bench_torch.py`` with no arguments in a fresh
@@ -122,7 +123,24 @@ shapes of the main paths, and drives both paths of the port:
   ``probe_motion_margin.py`` on phase 23's aerial artifact (the world-of-one
   sharded re-hint pose at margin 1 and 0); then, in this process and
   uncounted, ``motion_phase_timing.py``'s C3 frame against the same call
-  with kernels A and B swapped for their plain versions.
+  with kernels A and B swapped for their plain versions;
+* the depth-11 regime (phase 27): ``gen_fixtures.make_huge_scene_npz``'s
+  2,817,022-chunk SH4 tree of depth 11, built without JAX into
+  ``build/aerial_sh4_d11.npz`` (an earlier run's file is reused when it
+  holds that tree); its level-10 leaf map (``deep_levels``
+  1, rows [2^30, 2] i32), the turbo map and a level-9 map, each build's
+  seconds and peak memory; ``bench.py``'s 1080p protocol on it, A and B
+  against their plain versions, the level-10 frame bit-equal to the
+  level-9 frame and to E's exact frame of a 256x256 crop (E against its
+  plain version there), ten alternating pairs of the level-10 and level-9
+  frames and of pixel and ray order; one guided stop (C and D against
+  their plain versions); the Viewer's parked frames, async re-hint poses
+  (each exact outside its flagged rays, the truncation logged against the
+  tolerance at the default flag interval and held within it with the
+  flags read every pose), a splitting frame and the level-10 rebuild
+  after it; then ``bench_torch.py`` and
+  ``tools_torch/probe_motion_margin.py`` on the artifact in fresh
+  processes.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -140,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -561,9 +580,11 @@ def main():
     torch.cuda.empty_cache()
     probes_launches = probes_phase(
         kernels, smi, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
+    torch.cuda.empty_cache()
+    deep_launches = deep_phase(P, kernels, dev)
 
     # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
-    # 22, 23, 24, 25 and 26), summed over the paths for the kernels that
+    # 22, 23, 24, 25, 26 and 27), summed over the paths for the kernels that
     # several paths run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
@@ -571,7 +592,7 @@ def main():
             viewer_launches, viewer_guided_launches, motion_launches,
             rest_launches, sharded_launches, switches_launches,
             aerial_launches, bench_launches, scripts_launches,
-            probes_launches))
+            probes_launches, deep_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -3341,8 +3362,12 @@ def sharded_rank_main(rank, port, outdir):
     """One of two ranks of phase 21's two-rank run: gloo on the one card
     (NCCL refuses two ranks on one device), the sharded paths on a (2,)
     mesh and the refinement step on a (1, 2) mesh; writes a JSON summary
-    to ``outdir``."""
+    to ``outdir``.  A rank still running after 360 s writes every
+    thread's stack to its stderr and exits, inside phase 21's 400 s wait,
+    so that the phase reports where it stood."""
+    import faulthandler
     import torch.distributed as dist
+    faulthandler.dump_traceback_later(360, exit=True)
     import mega_nerf_viewer_tpu_torch as P
     from mega_nerf_viewer_tpu_torch import kernels, parallel
     from mega_nerf_viewer_tpu_torch.parallel import mesh as pm
@@ -3743,6 +3768,146 @@ def switches_phase(P, kernels):
     log(f"phase 22 in {time.perf_counter() - t0:.1f} s; launches {total}")
     return total
 
+def alone(kernels, fn, n):
+    """(device ms, how, CUDA-event ms) of ``fn`` alone, uncounted: the
+    events (which also hold the host's gaps) cross-check the profiler's
+    device time."""
+    ms, by = uncounted(kernels, lambda: device_ms(fn, n))
+    return ms, by, uncounted(kernels, lambda: cuda_ms(fn, n))
+
+
+def bench_protocol(P, tree, leaf_map, cam, opt, table, cs, blk, what):
+    """``bench.py``'s 1080p protocol (bench.py:261-368) on ``tree``: the
+    hint frame with ``max_dense`` doubled from 8 until no ray overflows,
+    ``order_from_hints``, chunk-exact ``seg_counts_from_hints`` budgets
+    (the ladder ``DEFAULT_SEGMENTS`` where a chunk records beyond the
+    largest chunk-exact budget, as bench.py:340-349 falls back), each
+    overflowing segment's budget doubled until none overflows; the settled
+    frame within 1e-6 of the hint frame.  Returns a namespace: ``md``, the
+    hint frame and its hints, the order, the layout (``"chunk-exact"`` or
+    ``"ladder"``) and its budgets, the settled frame ``img`` and
+    ``frame(lm=leaf_map, **kw)``, which renders it."""
+    md = 8
+    while True:
+        hint, overflow, steps, nrec, skips = P.render_frame_fast(
+            tree, leaf_map, cam, opt, max_dense=md, chunk_size=cs,
+            block=blk, return_nrec=True, skip_table=table,
+            return_skips=True)
+        if not int(overflow):
+            break
+        md *= 2
+        check(md <= 512, "pathological dense-sample count")
+    order = P.order_from_hints(steps, nrec, skips)
+    try:
+        budgets = [list(sc) for sc in P.seg_counts_from_hints(
+            nrec.reshape(-1)[order[0]], cs)]
+        layout = "chunk-exact"
+    except ValueError as e:
+        log(f"{what}: chunk-exact budgets unavailable ({e}); the ladder "
+            f"segments")
+        budgets = [list(sg) for sg in P.DEFAULT_SEGMENTS]
+        layout = "ladder"
+
+    def frame(lm=leaf_map, **kw):
+        lay = tuple(tuple(b) for b in budgets)
+        if layout == "chunk-exact":
+            kw.update(segments=None, seg_counts=lay)
+        else:
+            kw.update(segments=lay)
+        return P.render_frame_fast_segmented(
+            tree, lm, cam, opt, order, chunk_size=cs, skip_table=table,
+            **kw)
+
+    while True:
+        img, seg_overflow = frame()
+        ov = seg_overflow.cpu().numpy()
+        if not ov.any():
+            break
+        for i in np.flatnonzero(ov):
+            budgets[i][1] = max(1, budgets[i][1] * 2)
+            check(budgets[i][1] <= 512, "segment budget beyond 512")
+    diff = float((img - hint).abs().max())
+    log(f"{what}: hint budget {md}, {int(steps.sum())} steps, "
+        f"{int(nrec.sum())} records, {int(skips.sum())} skips, alpha max "
+        f"{float(img[..., 3].max()):.4f}; {layout} segments "
+        f"{[tuple(b) for b in budgets]}; segmented frame vs hint frame: max "
+        f"abs diff {diff:.3e}")
+    check(bool(torch.isfinite(img).all()), f"{what}: non-finite pixels")
+    check(diff <= 1e-6, f"{what}: the segmented frame differs from the hint "
+          f"frame")
+    return SimpleNamespace(md=md, hint=hint, steps=steps, nrec=nrec,
+                           skips=skips, order=order, layout=layout,
+                           budgets=budgets, img=img, frame=frame)
+
+
+def hint_ray_kernels(P, kernels, dev, tree, leaf_map, table, cam, opt, cs,
+                     blk, md, what):
+    """Kernels B and A against their plain versions on the hint frame's
+    rays (pixel-block order, padded to whole chunks), uncounted: B's ``t``
+    bit-equal and its skips equal, A's overflow, steps and records equal
+    and its pixels within 1e-6 at budget ``md``; then each alone with its
+    bound from these rays' skip, step and record counts.  Returns a
+    namespace of A's arguments, the counts and ``times``, a line of the
+    two kernels' figures."""
+    from mega_nerf_viewer_tpu_torch.ops import accel
+    from mega_nerf_viewer_tpu_torch.ops import skip_prepass as sp
+    from mega_nerf_viewer_tpu_torch.ops.rays import screen2worlddir_indices
+    W, H = cam.width, cam.height
+    R = W * H
+    bperm, _ = accel.block_permutation(W, H, blk, device=dev)
+    n_pad = -(-R // cs) * cs
+    pix = torch.cat([bperm, bperm[-1:].expand(n_pad - R)])
+    dirs, cen_world = screen2worlddir_indices(
+        pix, W, cam.fx, cam.fy, cam.cx, cam.cy,
+        torch.as_tensor(cam.transform, device=dev))
+    m = accel.march_inputs(tree, dirs, dirs, cen_world, opt)
+    live = ~m.miss
+    b_args = (table, m.cen, m.d, m.invdir, m.tmin, m.tmax, live,
+              m.step_size)
+    t_k, s_k = uncounted(kernels, lambda: kernels.skip_prepass(*b_args))
+    t_p, s_p = sp.entry_skip_prepass_reference(*b_args)
+    check(torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)),
+          f"{what} prepass t not bit-equal to the plain version")
+    check(torch.equal(s_k, s_p), f"{what} prepass skips differ")
+    ma = m._replace(tmin=t_k)
+    a_args = (tree, leaf_map, ma.cen, ma.d, ma.invdir, ma.delta_scale,
+              ma.tmin, ma.tmax, ma.miss, ma.basis, ma.step_size,
+              ma.sigma_thresh, ma.stop_thresh, md, ma.use_sh)
+    ok = uncounted(kernels, lambda: kernels.march(*a_args))
+    op = accel.render_rays_fast_reference(*a_args)
+    err_a = float((ok[0] - op[0]).abs().max())
+    for name, a, b in zip(("overflow", "steps", "records"), ok[1:4],
+                          op[1:4]):
+        check(torch.equal(a, b), f"{what} march {name} differ from the "
+              f"plain version")
+    check(err_a <= 1e-6, f"{what} march differs by {err_a}")
+    b_steps = int(s_k.sum())
+    a_steps, shaded = int(ok[2].sum()), int(ok[3].clamp(max=md).sum())
+    ms_b, by_b, ev_b = alone(kernels, lambda: kernels.skip_prepass(*b_args),
+                             20)
+    ms_a, by_a, ev_a = alone(kernels, lambda: kernels.march(*a_args), 20)
+    bb, bb_by = bound_ms(nbytes(table, m.cen, m.d, m.invdir, m.tmin, m.tmax,
+                                live, t_k, s_k),
+                         PREPASS_OPS_PER_STEP * b_steps)
+    B = ma.basis.shape[1]
+    ba, ba_by = bound_ms(
+        nbytes(ma.d, ma.invdir, ma.delta_scale, ma.tmin, ma.tmax, ma.miss,
+               ma.basis, ok[0], ok[2], ok[3])
+        + 8 * a_steps + 2 * tree.data_dim * shaded,
+        MARCH_OPS_PER_STEP * a_steps + (6 * B + 15) * shaded)
+    log(f"{what} kernels against their plain versions over {n_pad} rays: "
+        f"prepass t bit-equal, {b_steps} skips equal; march md {md}: "
+        f"overflow, {a_steps} steps and {int(ok[3].sum())} records equal, "
+        f"out max abs diff {err_a:.3e}")
+    times = (f"skip_prepass {ms_b:.4f} ms ({by_b}; events {ev_b:.4f}; bound "
+             f"{bb:.4f} ms by {bb_by}, {100 * bb / ms_b:.0f}%); march "
+             f"{ms_a:.4f} ms ({by_a}; events {ev_a:.4f}; bound {ba:.4f} ms "
+             f"by {ba_by}, {100 * ba / ms_a:.0f}%; {a_steps} steps, "
+             f"{shaded} shaded samples)")
+    return SimpleNamespace(a_args=a_args, b_steps=b_steps, a_steps=a_steps,
+                           shaded=shaded, err_a=err_a, times=times)
+
+
 def aerial_phase(P, kernels, dev, smi):
     """Phase 23: the aerial artifact (175,656 chunks, depth 9, SH4), built
     without JAX (``bench_torch.aerial_artifact``) and loaded onto the card
@@ -3757,9 +3922,7 @@ def aerial_phase(P, kernels, dev, smi):
     then the three frames' times and A's, B's and E's alone with their
     bounds.  Returns the path's launches."""
     from mega_nerf_viewer_tpu_torch.ops import accel, render
-    from mega_nerf_viewer_tpu_torch.ops import skip_prepass as sp
-    from mega_nerf_viewer_tpu_torch.ops.rays import (
-        rodrigues, screen2worlddir, screen2worlddir_indices)
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, screen2worlddir
     from mega_nerf_viewer_tpu_torch.utils.metrics import psnr
     from mega_nerf_viewer_tpu_torch.utils.png import read_png
     t_phase = time.perf_counter()
@@ -3824,99 +3987,12 @@ def aerial_phase(P, kernels, dev, smi):
     tune = P.device_tuning()
     cs, blk = tune.chunk_size, tune.block
     cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
-    md = 8
-    while True:
-        hint, overflow, steps, nrec, skips = P.render_frame_fast(
-            tree, leaf_map, cam, opt, max_dense=md, chunk_size=cs,
-            block=blk, return_nrec=True, skip_table=table,
-            return_skips=True)
-        if not int(overflow):
-            break
-        md *= 2
-        check(md <= 512, "pathological dense-sample count")
-    order = P.order_from_hints(steps, nrec, skips)
-    seg_counts = [list(sc) for sc in P.seg_counts_from_hints(
-        nrec.reshape(-1)[order[0]], cs)]
-
-    def frame(lm=leaf_map, **kw):
-        return P.render_frame_fast_segmented(
-            tree, lm, cam, opt, order, None, cs, skip_table=table,
-            seg_counts=tuple(tuple(sc) for sc in seg_counts), **kw)
-
-    while True:
-        img, seg_overflow = frame()
-        ov = seg_overflow.cpu().numpy()
-        if not ov.any():
-            break
-        for i in np.flatnonzero(ov):
-            seg_counts[i][1] = max(1, seg_counts[i][1] * 2)
-            check(seg_counts[i][1] <= 512, "segment budget beyond 512")
-    diff_hint = float((img - hint).abs().max())
-    log(f"aerial 1080p: hint budget {md}, {int(steps.sum())} steps, "
-        f"{int(nrec.sum())} records, {int(skips.sum())} skips, alpha max "
-        f"{float(img[..., 3].max()):.4f}; chunk-exact segments "
-        f"{[tuple(sc) for sc in seg_counts]}; segmented frame vs hint "
-        f"frame: max abs diff {diff_hint:.3e}")
-    check(bool(torch.isfinite(img).all()), "non-finite aerial pixels")
-    check(diff_hint <= 1e-6, "aerial segmented frame differs from the hint "
-          "frame")
-
-    # kernels B and A against their plain versions on the hint frame's
-    # rays (pixel-block order, padded to whole chunks), and each alone
-    R = WIDTH * HEIGHT
-    bperm, _ = accel.block_permutation(WIDTH, HEIGHT, blk, device=dev)
-    n_pad = -(-R // cs) * cs
-    pix = torch.cat([bperm, bperm[-1:].expand(n_pad - R)])
-    dirs, cen_world = screen2worlddir_indices(
-        pix, WIDTH, cam.fx, cam.fy, cam.cx, cam.cy,
-        torch.as_tensor(cam.transform, device=dev))
-    m = accel.march_inputs(tree, dirs, dirs, cen_world, opt)
-    live = ~m.miss
-    b_args = (table, m.cen, m.d, m.invdir, m.tmin, m.tmax, live,
-              m.step_size)
-    t_k, s_k = uncounted(kernels, lambda: kernels.skip_prepass(*b_args))
-    t_p, s_p = sp.entry_skip_prepass_reference(*b_args)
-    check(torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)),
-          "aerial prepass t not bit-equal to the plain version")
-    check(torch.equal(s_k, s_p), "aerial prepass skips differ")
-    ma = m._replace(tmin=t_k)
-    a_args = (tree, leaf_map, ma.cen, ma.d, ma.invdir, ma.delta_scale,
-              ma.tmin, ma.tmax, ma.miss, ma.basis, ma.step_size,
-              ma.sigma_thresh, ma.stop_thresh, md, ma.use_sh)
-    ok = uncounted(kernels, lambda: kernels.march(*a_args))
-    op = accel.render_rays_fast_reference(*a_args)
-    err_a = float((ok[0] - op[0]).abs().max())
-    for name, a, b in zip(("overflow", "steps", "records"), ok[1:4],
-                          op[1:4]):
-        check(torch.equal(a, b), f"aerial march {name} differ from the "
-              f"plain version")
-    check(err_a <= 1e-6, f"aerial march differs by {err_a}")
-    b_steps = int(s_k.sum())
-    a_steps, shaded = int(ok[2].sum()), int(ok[3].clamp(max=md).sum())
-
-    def alone(fn, n):
-        """(device ms, how, CUDA-event ms) of ``fn`` alone, uncounted: the
-        events (which also hold the host's gaps) cross-check the
-        profiler's device time."""
-        ms, by = uncounted(kernels, lambda: device_ms(fn, n))
-        return ms, by, uncounted(kernels, lambda: cuda_ms(fn, n))
-
-    ms_b, by_b, ev_b = alone(lambda: kernels.skip_prepass(*b_args), 20)
-    ms_a, by_a, ev_a = alone(lambda: kernels.march(*a_args), 20)
-    bb, bb_by = bound_ms(nbytes(table, m.cen, m.d, m.invdir, m.tmin, m.tmax,
-                                live, t_k, s_k),
-                         PREPASS_OPS_PER_STEP * b_steps)
-    B = ma.basis.shape[1]
-    ba, ba_by = bound_ms(
-        nbytes(ma.d, ma.invdir, ma.delta_scale, ma.tmin, ma.tmax, ma.miss,
-               ma.basis, ok[0], ok[2], ok[3])
-        + 8 * a_steps + 2 * tree.data_dim * shaded,
-        MARCH_OPS_PER_STEP * a_steps + (6 * B + 15) * shaded)
-    log(f"aerial kernels against their plain versions over {n_pad} rays: "
-        f"prepass t bit-equal, {b_steps} skips equal; march md {md}: "
-        f"overflow, {a_steps} steps and {int(ok[3].sum())} records equal, "
-        f"out max abs diff {err_a:.3e}")
-    del t_p, s_p, op, ok, dirs, cen_world, m, ma
+    bp = bench_protocol(P, tree, leaf_map, cam, opt, table, cs, blk,
+                        "aerial 1080p")
+    md, img, frame = bp.md, bp.img, bp.frame
+    hk = hint_ray_kernels(P, kernels, dev, tree, leaf_map, table, cam, opt,
+                          cs, blk, md, "aerial")
+    a_args = hk.a_args
 
     # the exact frame: one launch of kernel E
     def exact_frame():
@@ -3944,7 +4020,8 @@ def aerial_phase(P, kernels, dev, smi):
     check(not int(ka[1]), "kernel A from tmin overflowed the hint budget")
     e_steps, e_shaded = int(ke[4].sum()), int(ka[3].sum())
     n_other = int((ka[2] != ke[4]).sum())
-    ms_e, by_e, ev_e = alone(lambda: kernels.exact_march(*e_args), 10)
+    ms_e, by_e, ev_e = alone(kernels, lambda: kernels.exact_march(*e_args),
+                             10)
     be, be_by = exact_bound(me, ke[:3] + (ke[4],), e_steps, e_shaded,
                             tree.data_dim)
     log(f"aerial kernel E alone: {e_steps} steps (max {int(ke[4].max())}), "
@@ -3970,9 +4047,9 @@ def aerial_phase(P, kernels, dev, smi):
     check(all(same), "the level-7 frame's hints differ from level 9's")
     del out7, out9
     ms_a7, by_a7, ev_a7 = alone(
-        lambda: kernels.march(tree, lm7, *a_args[2:]), 20)
+        kernels, lambda: kernels.march(tree, lm7, *a_args[2:]), 20)
 
-    # times: CUDA events, 10 frames a round, the three frames in turns
+    # times: CUDA events, 10 frames a round, the frames in turns
     rounds = {"leaf map": [], "exact": [], "level 7": []}
     for _ in range(ROUNDS):
         rounds["leaf map"].append(cuda_ms(frame, N_FRAMES))
@@ -3992,11 +4069,7 @@ def aerial_phase(P, kernels, dev, smi):
         f"level-7 frame {med['level 7']:.3f} ms (rounds "
         + "; ".join(f"{k} {[round(r, 3) for r in v]}"
                     for k, v in rounds.items()) + ")")
-    log(f"aerial kernels alone ({power}): skip_prepass {ms_b:.4f} ms "
-        f"({by_b}; events {ev_b:.4f}; bound {bb:.4f} ms by {bb_by}, "
-        f"{100 * bb / ms_b:.0f}%); march {ms_a:.4f} ms ({by_a}; events "
-        f"{ev_a:.4f}; bound {ba:.4f} ms by {ba_by}, {100 * ba / ms_a:.0f}%; "
-        f"{a_steps} steps, {shaded} shaded samples), on the level-7 map "
+    log(f"aerial kernels alone ({power}): {hk.times}, on the level-7 map "
         f"{ms_a7:.4f} ms ({by_a7}; events {ev_a7:.4f}); exact_march "
         f"{ms_e:.4f} ms ({by_e}; events {ev_e:.4f}; bound {be:.4f} ms by "
         f"{be_by}, {100 * be / ms_e:.0f}%)")
@@ -4034,19 +4107,42 @@ def bench_phase(dev, aerial_path):
         del s, fn
         torch.cuda.empty_cache()
 
+    launches, wall = bench_run(
+        [], ("value", "sorted_mode_fps", "aerial_fps",
+             "aerial_sorted_mode_fps"), "phase 24",
+        BENCH_AERIAL_FIXTURE=aerial_path)
+    log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s (the bench "
+        f"run {wall:.1f} s); launches {launches}")
+    return launches
+
+
+def script_env(**extra):
+    """This process's environment less the ``BENCH_`` knobs, unbuffered,
+    with ``extra``: a script in a fresh process runs at its defaults."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("BENCH_")}
-    env.update(BENCH_AERIAL_FIXTURE=aerial_path, PYTHONUNBUFFERED="1")
+    env.update(PYTHONUNBUFFERED="1", **extra)
+    return env
+
+
+def bench_run(args, keys, what, **extra_env):
+    """``python3 bench_torch.py *args`` in a fresh process: exit 0, one
+    stdout line without ``error``, ``smoke`` or a ``v5e8`` key, each of
+    ``keys`` above 0, kernels A and B launched; its stderr's comment lines
+    and its line logged beside the card.  Returns (its launches, wall
+    seconds)."""
+    import bench_torch
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
-                       cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=900)
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py")] + args,
+        cwd=ROOT, env=script_env(**extra_env), capture_output=True,
+        text=True, timeout=900)
     wall = time.perf_counter() - t0
     for line in r.stderr.splitlines():
         if line.startswith("# "):
-            log(f"phase 24 bench_torch.py stderr: {line}")
-    check(r.returncode == 0, f"bench_torch.py exited {r.returncode}: "
-          f"{r.stderr[-3000:]}")
+            log(f"{what} bench_torch.py stderr: {line}")
+    check(r.returncode == 0, f"bench_torch.py {args} exited "
+          f"{r.returncode}: {r.stderr[-3000:]}")
     lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
     check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines")
     rec = json.loads(lines[0])
@@ -4054,12 +4150,11 @@ def bench_phase(dev, aerial_path):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    log(f"phase 24 card: {power}")
-    log(f"phase 24 bench_torch.py line: {lines[0]}")
+    log(f"{what} card: {power}")
+    log(f"{what} {' '.join(['bench_torch.py'] + args)} line: {lines[0]}")
     check("error" not in rec and not rec.get("smoke"),
           f"bench_torch.py record: {rec}")
-    for key in ("value", "sorted_mode_fps", "aerial_fps",
-                "aerial_sorted_mode_fps"):
+    for key in keys:
         check(rec.get(key, 0) > 0, f"bench_torch.py {key}: {rec.get(key)}")
     check(not [k for k in rec if "v5e8" in k], "a v5e8 key in the record")
     mark = bench_torch.LAUNCHES_MARK
@@ -4067,9 +4162,7 @@ def bench_phase(dev, aerial_path):
                                if ln.startswith(mark))[len(mark):])
     check(launches["skip_prepass"] > 0 and launches["march"] > 0,
           f"the bench run did not launch kernels A and B: {launches}")
-    log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s (the bench "
-        f"run {wall:.1f} s); launches {launches}")
-    return launches
+    return launches, wall
 
 
 # ----------------------------------------------------------------------
@@ -4255,9 +4348,7 @@ def scripts_phase(P, kernels, smi):
     from mega_nerf_viewer_tpu_torch.utils.png import read_png
     t_phase = time.perf_counter()
     total = {}
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("BENCH_")}
-    env["PYTHONUNBUFFERED"] = "1"
+    env = script_env()
     mark = "# launches "
     contract = load_script("_overrides_torch")
     for name, needs in SCRIPTS.items():
@@ -4468,6 +4559,36 @@ def phase_c3_against_plain(kernels):
     torch.cuda.empty_cache()
 
 
+def probe_run(name, args, what):
+    """``tools_torch/<name>.py *args`` in a fresh process at its defaults:
+    exit 0, its lines forwarded, ``done`` last, one JSON line without
+    ``smoke``, the kernels it reaches launched, its invariant.  Returns
+    (its record, wall seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools_torch", name + ".py")]
+        + args, cwd=ROOT, env=script_env(), capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{name} exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    check(lines and lines[-1] == "done", f"{name} did not finish: "
+          f"{lines[-3:]}")
+    recs = [ln for ln in lines if ln.startswith("{")]
+    check(len(recs) == 1, f"{name} printed {len(recs)} JSON lines")
+    rec = json.loads(recs[0])
+    check("smoke" not in rec, f"{name} ran as a smoke run")
+    for ln in lines:
+        if not ln.startswith("{") and ln != "done":
+            log(f"{what} {name}: {ln}")
+    missing = [k for k in PROBES[name] if rec["launches"][k] == 0]
+    check(not missing, f"{name}: {missing} never launched: "
+          f"{rec['launches']}")
+    probe_invariants(name, rec)
+    return rec, wall
+
+
 def probes_phase(kernels, smi, aerial_path):
     """Phase 26: each ``tools_torch/`` probe at its defaults in a fresh
     process (exit 0, its lines forwarded, its JSON line without ``smoke``,
@@ -4476,40 +4597,439 @@ def probes_phase(kernels, smi, aerial_path):
     Returns the probes' launches, summed."""
     t_phase = time.perf_counter()
     total = {}
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("BENCH_")}
-    env["PYTHONUNBUFFERED"] = "1"
-    for name, needs in PROBES.items():
+    for name in PROBES:
         args = [aerial_path] if name == "probe_motion_margin" else []
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, os.path.join(ROOT, "tools_torch", name + ".py")]
-            + args, cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=300)
-        wall = time.perf_counter() - t0
-        check(r.returncode == 0, f"{name} exited {r.returncode}: "
-              f"{r.stderr[-3000:]}")
-        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
-        check(lines and lines[-1] == "done", f"{name} did not finish: "
-              f"{lines[-3:]}")
-        recs = [ln for ln in lines if ln.startswith("{")]
-        check(len(recs) == 1, f"{name} printed {len(recs)} JSON lines")
-        rec = json.loads(recs[0])
-        check("smoke" not in rec, f"{name} ran as a smoke run")
-        for ln in lines:
-            if not ln.startswith("{") and ln != "done":
-                log(f"phase 26 {name}: {ln}")
-        launches = rec["launches"]
-        missing = [k for k in needs if launches[k] == 0]
-        check(not missing, f"{name}: {missing} never launched: {launches}")
-        probe_invariants(name, rec)
-        add_launches(total, launches)
+        rec, wall = probe_run(name, args, "phase 26")
+        add_launches(total, rec["launches"])
         log(f"phase 26 {name} ({rec['card']}; {wall:.1f} s) launches "
-            f"{ {k: n for k, n in launches.items() if n} }")
+            f"{ {k: n for k, n in rec['launches'].items() if n} }")
     phase_c3_against_plain(kernels)
     log(f"phase 26 in {time.perf_counter() - t_phase:.1f} s ({smi}); "
         f"launches { {k: n for k, n in total.items() if n} }")
     return total
+
+
+# ----------------------------------------------------------------------
+# Phase 27: the depth-11 regime
+# ----------------------------------------------------------------------
+# gen_fixtures.make_huge_scene_npz: the aerial field two levels deeper
+HUGE_DEPTH = 11
+# the Viewer's max_tree_capacity, make_huge_scene_npz's chunk cap
+VIEWER_CAPACITY = 3_200_000
+HUGE_CHUNKS = 2_817_022
+# the leaf-map level device_tuning caps at on 80 GB (utils/tuning.py)
+HUGE_LEVEL = 10
+# the exact oracle's crop of the 1080p frame, and the Viewer's moved poses
+CROP = 256
+VIEWER_POSES = 6
+PAIRS = 10
+
+
+def built(fn):
+    """(result, seconds, GiB allocated before, GiB by which the allocator's
+    peak rose above that) of one call of ``fn``, the card synchronized."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t, base / 2**30,
+            (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def paired(fa, fb):
+    """Medians of ``fa``'s and ``fb``'s ms a frame (CUDA events,
+    N_FRAMES frames a turn) over PAIRS pairs, the order alternating, and
+    the turns."""
+    a, b, n = [], [], PAIRS
+    for i in range(n):
+        for f, out in ((fa, a), (fb, b))[::1 if i % 2 == 0 else -1]:
+            out.append(cuda_ms(f, N_FRAMES))
+    return sorted(a)[n // 2], sorted(b)[n // 2], a, b
+
+
+def deep_maps(P, accel, tree, opt):
+    """The depth-11 tree's maps, each build's seconds and memory logged:
+    the default map (level 10, ``deep_levels`` 1), the turbo map beside it
+    (built, held against the default map's node column, and dropped) and
+    the level-9 map (``deep_levels`` 2, JAX's v5e regime)."""
+    lm, s10, base, gib10 = built(lambda: P.build_leaf_map(tree))
+    free = torch.cuda.mem_get_info()[0]
+    check(lm.level == HUGE_LEVEL and lm.deep_levels == 1,
+          f"the default map is level {lm.level} (+{lm.deep_levels} deep)")
+    turbo, s_t, base_t, gib_t = built(lambda: accel.build_turbo_leaf_map(
+        tree, sigma_thresh=opt.sigma_thresh))
+    check(turbo.level == HUGE_LEVEL and torch.equal(turbo.rows[:, 0],
+                                                    lm.rows[:, 0]),
+          "the turbo map's nodes differ from the default map's")
+    del turbo
+    torch.cuda.empty_cache()
+    lm9, s9, base9, gib9 = built(lambda: P.build_leaf_map(
+        tree, level=HUGE_LEVEL - 1))
+    check(lm9.deep_levels == 2, f"the level-9 map has {lm9.deep_levels} "
+          f"deep levels")
+    log(f"phase 27 maps: level {lm.level} (+{lm.deep_levels} deep), rows "
+        f"{nbytes(lm.rows) / 2**30:.2f} GiB, built in {s10:.2f} s, peak "
+        f"+{gib10:.2f} GiB over {base:.2f} GiB resident "
+        f"({gib10 * 2**30 / nbytes(lm.rows):.2f}x the rows), "
+        f"{free / 2**30:.2f} GiB free after it; turbo map {s_t:.2f} s, peak "
+        f"+{gib_t:.2f} GiB over {base_t:.2f} GiB; level-9 map (+2 deep) "
+        f"{s9:.2f} s, peak +{gib9:.2f} GiB over {base9:.2f} GiB")
+    return lm, lm9
+
+
+def deep_guided(P, kernels, dev, tree, lm, table, cam):
+    """One guided stop on the depth-11 tree at 1080p: kernel C against its
+    plain version (t bit-equal, counts equal) on the 2^30-cell map and
+    alone with its bound; ``collect_and_query_fast`` with
+    ``guided1080p.py``'s synthetic model (median of 3) and
+    ``composite_frame``; kernel D against its plain version on the stop's
+    cache and alone with its bound."""
+    from mega_nerf_viewer_tpu_torch.ops import compact_composite as cc
+    from mega_nerf_viewer_tpu_torch.ops import guided
+    from mega_nerf_viewer_tpu_torch.ops.rays import screen2worlddir
+    B = tree.data_format.basis_dim
+    model = P.MegaNeRFModel.synthetic(data_dim=int(tree.data_dim),
+                                      **GUIDED_MODEL)
+    opt = P.RenderOptions(max_guided_samples=GUIDED_S, need_viewdir=True,
+                          use_guided_sampling=True,
+                          basis_minmax=(0, B - 1))
+    dirs, cen = screen2worlddir(
+        WIDTH, HEIGHT, cam.fx, cam.fy, cam.cx, cam.cy,
+        torch.as_tensor(cam.transform, device=dev))
+    c = guided.collect_inputs(tree, dirs, cen, opt, table)
+    c_args = (tree, lm, c.cen, c.d, c.invdir, c.delta_scale, c.tmin, c.tmax,
+              c.miss, GUIDED_S, c.step_size, c.sigma_thresh, c.stop_thresh)
+    ok = uncounted(kernels, lambda: kernels.collect(*c_args))
+    op = guided.collect_t_fast_reference(*c_args)
+    check(torch.equal(ok[0].view(torch.int32), op[0].view(torch.int32)),
+          "phase 27 collect t_buf not bit-equal to the plain version")
+    for name, a, b in zip(("ns", "steps", "overflow"), ok[1:], op[1:]):
+        check(torch.equal(a, b), f"phase 27 collect {name} differs")
+    steps_c = int(ok[2].sum())
+    ms_c, by_c, ev_c = alone(kernels, lambda: kernels.collect(*c_args), 20)
+    bc, bc_by = bound_ms(
+        nbytes(c.d, c.invdir, c.delta_scale, c.tmin, c.tmax, c.miss, ok[0],
+               ok[1], ok[2]) + 8 * steps_c, MARCH_OPS_PER_STEP * steps_c)
+    log(f"phase 27 kernel collect against its plain version over "
+        f"{dirs.shape[0]} rays: t_buf bit-equal, {int(ok[1].sum())} "
+        f"samples, {steps_c} steps, {int(ok[3])} overflowing rays equal; "
+        f"{ms_c:.4f} ms ({by_c}; events {ev_c:.4f}; bound {bc:.4f} ms by "
+        f"{bc_by}, {100 * bc / ms_c:.0f}%)")
+    del c, ok, op, dirs
+
+    def stop():
+        return P.collect_and_query_fast(tree, lm, model, cam, opt,
+                                        chunk_size=min(1920, WIDTH),
+                                        skip_table=table)
+
+    cache, first_ms = timed(stop)
+    cache, stop_ms, runs = median3(stop)
+    img = P.composite_frame(tree, cam, opt, cache)
+    comp_ms = sorted(cuda_ms(lambda: P.composite_frame(tree, cam, opt,
+                                                       cache), N_FRAMES)
+                     for _ in range(ROUNDS))[ROUNDS // 2]
+    check(bool(torch.isfinite(img).all())
+          and bool((img[..., 3] == 1).all())
+          and float(img[..., :3].max()) > 0, "phase 27 guided frame")
+    d_args = (cache["results_c"], cache["z_c"], cache["ray_of_p"],
+              cache["offs"], cache["num_samples"], cache["vdirs_c"])
+    total = int(cache["offs"][-1])
+    ok = uncounted(kernels, lambda: cc.composite_results_compact_kernel(
+        *d_args, opt, B, True))
+    op = cc.composite_results_compact_reference(*d_args, opt, B, True)
+    err_d = float((ok - op).abs().max())
+    check(bool(torch.isfinite(ok).all()) and err_d <= 1e-6,
+          f"phase 27 compact composite differs by {err_d}")
+    ms_d, by_d, ev_d = alone(kernels, lambda: (
+        cc.composite_results_compact_kernel(*d_args, opt, B, True)), 20)
+    bd, bd_by = composite_bound(cache["results_c"], cache["offs"],
+                                cache["num_samples"], total, B,
+                                opt.basis_minmax, True)
+    log(f"phase 27 guided stop (S {GUIDED_S}, model {model.n_clusters} "
+        f"clusters x {len(model.params.weights)} layers x "
+        f"{GUIDED_MODEL['hidden']}): first {first_ms:.1f} ms, median "
+        f"{stop_ms:.3f} ms (runs {[round(r, 3) for r in runs]}), "
+        f"{total} MLP samples; composite {comp_ms:.3f} ms/frame; kernel "
+        f"compact_composite against its plain version: max abs diff "
+        f"{err_d:.3e}, {ms_d:.4f} ms ({by_d}; events {ev_d:.4f}; bound "
+        f"{bd:.4f} ms by {bd_by}, {100 * bd / ms_d:.0f}%)")
+    return model
+
+
+def deep_viewer(P, kernels, tree, model, want):
+    """The Viewer on the depth-11 tree at 1080p, ``max_tree_capacity``
+    3,200,000: parked frames (settled, then timed; the last within 1e-6
+    of ``want``, the direct frame); ``VIEWER_POSES`` moved poses of
+    ``motion1080p.py``'s orbit under the async policy with re-hint at the
+    Viewer's defaults (the flags read every ``motion_flag_interval``
+    poses), then as many with the flags read every pose, each pose off a
+    fresh frame on no more pixels than its flags report, its truncated
+    rays logged against the tolerance (within it on every pose whose
+    flags are read every pose); parked frames again, settled back
+    to a fresh frame's pixels; then one splitting frame with the model (its
+    exact vote frame with visit marks, the expand) and one parked frame
+    that rebuilds the level-10 map on the grown tree, its build seconds
+    and memory logged."""
+    from mega_nerf_viewer_tpu_torch import viewer as VI
+    cs = P.device_tuning().chunk_size
+    v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL),
+                 max_tree_capacity=VIEWER_CAPACITY)
+    v.overflow_policy = "async"
+    R = WIDTH * HEIGHT
+    tol = int(R * v.motion_overflow_tolerance)
+
+    def flags():
+        """The last frame's truncated rays per segment."""
+        p = v._pending_ov
+        return np.zeros(1, np.int64) if p is None else VI._host_array(p[1])
+
+    def fresh():
+        return uncounted(kernels, lambda: fresh_frame(
+            P, v.tree, v._leaf_map, v.camera, v.options, cs,
+            v._skip_table))
+
+    def settle(what):
+        for _ in range(12):
+            v.render(fetch=False)
+            if not flags().any():
+                break
+        check(not flags().any(), f"the Viewer's parked frames did not "
+              f"settle {what}")
+
+    v.render(fetch=False)
+    settle("at the start")
+    parked = [timed(lambda: v.render(fetch=False))[1]
+              for _ in range(N_FRAMES)]
+    img = v.render(fetch=False)
+    err = float((img - want).abs().max())
+    check(err <= 1e-6, f"the Viewer's parked frame differs from the direct "
+          f"frame by {err}")
+    check(v._leaf_map.level == HUGE_LEVEL, "the Viewer's map level")
+    episodes = {}
+    for interval in (v.motion_flag_interval, 1):
+        v.motion_flag_interval = interval
+        poses = episodes[interval] = []
+        for _ in range(VIEWER_POSES):
+            motion_step(v.camera, 3.0)
+            img, ms = timed(lambda: v.render(fetch=False))
+            fl = flags()
+            trunc = int(fl.sum())
+            n_diff = int(((img - fresh()).abs() > 1e-6).any(-1).sum())
+            check(n_diff <= trunc, f"an async pose: {n_diff} pixels differ "
+                  f"from a fresh frame, its flags report {trunc}")
+            check(bool(torch.isfinite(img).all()), "non-finite pose pixels")
+            poses.append(dict(ms=round(ms, 3), truncated=trunc,
+                              segment_max=int(fl.max()), diff=n_diff))
+    settle("after the poses")
+    err_back = float((v.render(fetch=False) - fresh()).abs().max())
+    check(err_back <= 1e-6, f"the parked frame after the poses differs from "
+          f"a fresh frame by {err_back}")
+    over = {k: sum(p["truncated"] > tol for p in ps)
+            for k, ps in episodes.items()}
+    # with the flags read every pose, each pose's budgets come from the
+    # previous pose's measured CDF: every pose stays within the tolerance
+    check(not over[1], f"async poses with the flags read every pose "
+          f"truncated over the tolerance {tol}: {episodes[1]}")
+    cap0 = int(v.tree.capacity)
+    v.model = model
+    v.options = v.options.replace(**REFINE_OPT)
+    n_e = kernels.LAUNCHES["exact_march"]
+    img, edit_ms = timed(lambda: v.render(fetch=False))
+    cap1 = int(v.tree.capacity)
+    check(kernels.LAUNCHES["exact_march"] > n_e, "the splitting frame did "
+          "not run kernel E")
+    check(cap1 > cap0 and bool(torch.isfinite(img).all()),
+          f"the splitting frame: capacity {cap0} -> {cap1}")
+    check(v._leaf_map is None, "the edit left the leaf map standing")
+    v.options = v.options.replace(use_splitting=False)
+    img, rebuild_s, base, gib = built(lambda: v.render(fetch=False))
+    lm = v._leaf_map
+    check(lm.level == HUGE_LEVEL and bool(torch.isfinite(img).all()),
+          f"the rebuilt map is level {lm.level}")
+    log(f"phase 27 Viewer (max_tree_capacity {VIEWER_CAPACITY}, async "
+        f"re-hint): parked {sorted(parked)[N_FRAMES // 2]:.3f} ms/frame "
+        f"(median of {N_FRAMES}; max abs diff {err:.3e} to the direct "
+        f"frame); {VIEWER_POSES} poses at 3 degrees a flag interval, "
+        f"tolerance {tol} rays, poses over it (of the frame's rays) "
+        f"{over}, the parked frame after them {err_back:.3e} from a fresh "
+        f"frame: " + "; ".join(
+            f"interval {k}: median "
+            f"{sorted(p['ms'] for p in ps)[VIEWER_POSES // 2]:.3f} ms/pose "
+            f"{ps}" for k, ps in episodes.items())
+        + f"; splitting frame {edit_ms:.1f} ms "
+        f"({cap0} -> {cap1} chunks); the next frame {rebuild_s * 1e3:.1f} ms "
+        f"rebuilt the map (level {lm.level}, +{lm.deep_levels} deep) in "
+        f"{v.timer.records['leaf_map_build'][-1]:.2f} s, peak "
+        f"+{gib:.2f} GiB over {base:.2f} GiB resident")
+    return v
+
+
+def deep_scripts(path):
+    """``python3 bench_torch.py <npz>`` and
+    ``tools_torch/probe_motion_margin.py <npz>`` on the depth-11 artifact,
+    each in a fresh process, checked and logged.  Returns their launches,
+    summed."""
+    launches, wall = bench_run([path], ("value", "sorted_mode_fps"),
+                               "phase 27")
+    log(f"phase 27 bench_torch.py d11 run {wall:.1f} s")
+    rec, wall = probe_run("probe_motion_margin", [path], "phase 27")
+    log(f"phase 27 probe_motion_margin d11 ({rec['card']}; {wall:.1f} s)")
+    total = dict(launches)
+    add_launches(total, rec["launches"])
+    return total
+
+
+def deep_phase(P, kernels, dev):
+    """Phase 27: the depth-11 regime.  ``make_huge_scene_npz``'s
+    2,817,022-chunk SH4 tree of depth 11, built without JAX
+    (``bench_torch.aerial_artifact``) into ``build/aerial_sh4_d11.npz``,
+    or an earlier run's file there when it holds that tree, and loaded
+    onto the card; its default leaf map (level 10,
+    ``deep_levels`` 1, rows [2^30, 2] i32), the turbo map and a level-9
+    map, each build's seconds and peak memory; ``bench.py``'s 1080p
+    protocol on the level-10 map (the ladder where chunk-exact budgets
+    raise), A and B against their plain versions on the hint frame's rays;
+    the level-10 frame bit-equal to the level-9 frame and, on a 256x256
+    crop, to E's exact frame of the crop, E against its plain version
+    there; ten alternating pairs of the level-10 and level-9 frames and
+    of the pixel-order and ray-order frames; one guided stop (C and D
+    against their plain versions); the Viewer's parked frames, async
+    re-hint poses, a splitting frame and the rebuild after it; then
+    ``bench_torch.py`` and ``probe_motion_margin.py`` on the artifact in
+    fresh processes.  Returns the path's launches."""
+    from mega_nerf_viewer_tpu_torch.ops import accel, render
+    from mega_nerf_viewer_tpu_torch.ops.rays import rodrigues, screen2worlddir
+    t_phase = time.perf_counter()
+    path = os.path.join(ROOT, "build", f"aerial_sh4_d{HUGE_DEPTH}.npz")
+    tree, made = None, "reused"
+    if os.path.exists(path):
+        # an earlier run's file, kept if it is the depth-11 tree
+        tree, load_s, _, _ = built(lambda: P.N3Tree.open(path))
+        if (int(tree.capacity) != HUGE_CHUNKS
+                or accel.tree_max_depth(tree) != HUGE_DEPTH):
+            tree = None
+    if tree is None:
+        t0 = time.perf_counter()
+        aerial_artifact(path, depth=HUGE_DEPTH)
+        made = f"built on the host in {time.perf_counter() - t0:.1f} s"
+        tree, load_s, _, _ = built(lambda: P.N3Tree.open(path))
+    cap = int(tree.capacity)
+    depth = accel.tree_max_depth(tree)
+    tree_bytes = nbytes(tree.data, tree.child, tree.parent,
+                        tree.sample_counts, tree.scale, tree.offset)
+    log(f"phase 27 artifact: {cap} chunks, depth {depth}, "
+        f"{tree.data_format.to_string()}, npz {os.path.getsize(path) / 1e6:.1f}"
+        f" MB {made}, loaded in {load_s:.1f} s; tree "
+        f"{tree_bytes / 1e6:.1f} MB on the device")
+    check(cap == HUGE_CHUNKS and depth == HUGE_DEPTH
+          and tree.data_format.to_string() == "SH4",
+          f"the depth-11 artifact: {cap} chunks, depth {depth}")
+
+    kernels.reset_launch_counts()
+    opt = P.RenderOptions()
+    lm, lm9 = deep_maps(P, accel, tree, opt)
+    table = P.build_skip_table(tree, opt.sigma_thresh)
+    tune = P.device_tuning()
+    cs, blk = tune.chunk_size, tune.block
+    cam = camera(P.Camera, WIDTH, HEIGHT, FOCAL)
+    bp = bench_protocol(P, tree, lm, cam, opt, table, cs, blk,
+                        "phase 27 d11 1080p")
+    hk = hint_ray_kernels(P, kernels, dev, tree, lm, table, cam, opt, cs,
+                          blk, bp.md, "phase 27 d11")
+    ms_a9, by_a9, ev_a9 = alone(
+        kernels, lambda: kernels.march(tree, lm9, *hk.a_args[2:]), 20)
+
+    # the level-10 frame against the level-9 frame, bit for bit
+    out10 = bp.frame(return_hints=True)
+    out9 = bp.frame(lm9, return_hints=True)
+    check(not out9[1].any(), "the level-9 frame overflowed")
+    same = [torch.equal(a, b) for a, b in zip(out10[:1] + out10[2:],
+                                              out9[:1] + out9[2:])]
+    log(f"phase 27 level-10 frame against the level-9 frame (+2 deep): "
+        f"pixels, steps, records, skips bit-equal {same}")
+    check(all(same), "the level-10 frame differs from the level-9 frame")
+    del out10, out9
+
+    # a crop against the exact march: E's frame of the crop's pixels
+    x0, y0 = (WIDTH - CROP) // 2, (HEIGHT - CROP) // 2
+    ccx, ccy = cam.cx - x0, cam.cy - y0
+
+    def exact_crop():
+        return P.render_frame(tree, CROP, CROP, cam.fx, cam.fy, ccx, ccy,
+                              cam.transform, opt)[0]
+
+    ex = exact_crop()
+    crop = bp.img[y0:y0 + CROP, x0:x0 + CROP]
+    err_x = float((ex - crop).abs().max())
+    check(float(crop[..., :3].max()) > 0 and torch.equal(ex, crop),
+          f"the exact crop differs from the level-10 frame by {err_x}")
+    transform = torch.as_tensor(cam.transform, dtype=torch.float32,
+                                device=dev)
+    edirs, ecen = screen2worlddir(CROP, CROP, cam.fx, cam.fy, ccx, ccy,
+                                  transform)
+    me = accel.march_inputs(tree, edirs, rodrigues(opt.rot_dirs, edirs),
+                            ecen, opt)
+    e_args = (tree, me, opt, False, render.DEFAULT_MAX_LEVELS, 0)
+    ke = uncounted(kernels, lambda: kernels.exact_march(*e_args))
+    pe = render.exact_march_reference(tree, me, opt, False)
+    err_e = float((ke[0] - pe[0]).abs().max())
+    for name, a, b in zip(("split_vote", "sample_vote", "visited", "steps"),
+                          ke[1:], pe[1:]):
+        check(torch.equal(a, b), f"phase 27 exact march {name} differs")
+    check(err_e <= 1e-6, f"phase 27 exact march differs by {err_e}")
+    ka = uncounted(kernels, lambda: kernels.march(
+        tree, lm, me.cen, me.d, me.invdir, me.delta_scale, me.tmin, me.tmax,
+        me.miss, me.basis, me.step_size, me.sigma_thresh, me.stop_thresh,
+        bp.md, me.use_sh))
+    e_steps, e_shaded = int(ke[4].sum()), int(ka[3].sum())
+    ms_e, by_e, ev_e = alone(kernels, lambda: kernels.exact_march(*e_args),
+                             20)
+    be, be_by = exact_bound(me, ke[:3] + (ke[4],), e_steps, e_shaded,
+                            tree.data_dim)
+    log(f"phase 27 {CROP}x{CROP} crop at ({x0}, {y0}): E's exact frame "
+        f"against the level-10 frame: bit-equal (max abs diff {err_x:.3e}); "
+        f"kernel E against its plain version: "
+        f"out max abs diff {err_e:.3e}, votes, marks and {e_steps} steps "
+        f"equal; {ms_e:.4f} ms ({by_e}; events {ev_e:.4f}; bound {be:.4f} "
+        f"ms by {be_by}, {100 * be / ms_e:.0f}%; {e_shaded} shaded samples)")
+    del ex, crop, edirs, ecen, me, ke, pe, ka
+
+    # times: CUDA events, ten pairs each, the order alternating
+    t10, t9, r10, r9 = paired(bp.frame, lambda: bp.frame(lm9))
+    tpix, tsort, rpix, rsort = paired(
+        bp.frame, lambda: bp.frame(sorted_output=True))
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 27 d11 1080p times ({power}), medians of {PAIRS} "
+        f"alternating pairs of {N_FRAMES} frames: level-10 frame "
+        f"{t10:.3f} ms, level-9 frame {t9:.3f} ms (rounds "
+        f"{[round(r, 3) for r in r10]} / {[round(r, 3) for r in r9]}); "
+        f"pixel order {tpix:.3f} ms, ray order (sorted_output) {tsort:.3f} "
+        f"ms, the unpermute's share {tpix - tsort:.3f} ms (rounds "
+        f"{[round(r, 3) for r in rpix]} / {[round(r, 3) for r in rsort]})")
+    log(f"phase 27 d11 kernels alone ({power}): {hk.times}; march on the "
+        f"level-9 map {ms_a9:.4f} ms ({by_a9}; events {ev_a9:.4f})")
+    del lm9
+    torch.cuda.empty_cache()
+
+    model = deep_guided(P, kernels, dev, tree, lm, table, cam)
+    want = bp.img
+    del bp, hk, lm, table
+    torch.cuda.empty_cache()
+    v = deep_viewer(P, kernels, tree, model, want)
+    launches = read_launches(kernels, ("skip_prepass", "march", "collect",
+                                       "compact_composite", "exact_march"),
+                             "phase 27")
+    del v, tree, model, want
+    torch.cuda.empty_cache()
+    add_launches(launches, deep_scripts(path))
+    log(f"phase 27 in {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
 
 
 if __name__ == "__main__":
