@@ -297,6 +297,26 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+@contextlib.contextmanager
+def host_profile():
+    """A profiler session of the host alone, so that the port's spans
+    record; the recorder is emptied first (read it with
+    :func:`span_seconds`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mega_nerf_viewer_tpu_torch.utils import profiling
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        yield
+
+
+def span_seconds(name):
+    """The seconds of each span ``name`` recorded since the recorder was
+    last emptied, in the order they closed."""
+    from mega_nerf_viewer_tpu_torch.utils import profiling
+    return [(s.end_ns - s.start_ns) / 1e9 for s in profiling.recorded()[0]
+            if s.name == name]
+
+
 def profile_frames(frame, ms_frame, n=3, what="frame"):
     """Where a frame's device time goes: torch.profiler over ``n`` frames;
     the busy share is device time per frame over the unprofiled
@@ -2595,12 +2615,15 @@ def grid_path(P, kernels, tree):
     v = P.Viewer(tree, camera=cam)
     v.options = v.options.replace(show_grid=True)
     kernels.reset_launch_counts()
-    first, first_ms = timed(lambda: v.render(fetch=False))
+    # the overlay's draws are the Viewer's viewer.gen_wire spans
+    with host_profile():
+        first, first_ms = timed(lambda: v.render(fetch=False))
+        cache = v._grid_cache
+        img, parked_ms = timed(lambda: v.render(fetch=False))
     check(kernels.LAUNCHES["exact_march"] > 0,
           "the grid frame did not run kernel E")
-    cache = v._grid_cache
-    img, parked_ms = timed(lambda: v.render(fetch=False))
-    check(v._grid_cache is cache and len(v.timer.records["gen_wire"]) == 1,
+    gen_s = span_seconds("viewer.gen_wire")
+    check(v._grid_cache is cache and len(gen_s) == 1,
           "the parked grid frame drew the overlay again")
     check(torch.equal(img, first), "the parked grid frame changed")
     lines = int((line_depth < 1e9).sum())
@@ -2609,7 +2632,9 @@ def grid_path(P, kernels, tree):
     poses = []
     for _ in range(3):
         motion_step(cam, 3.0)
-        img, ms = timed(lambda: v.render(fetch=False))
+        with host_profile():
+            img, ms = timed(lambda: v.render(fetch=False))
+        gen_s += span_seconds("viewer.gen_wire")
         check(bool(torch.isfinite(img).all()), "non-finite grid pose")
         poses.append(round(ms, 3))
     # a cube of 12 triangles in front of the camera, with the grid
@@ -2619,9 +2644,8 @@ def grid_path(P, kernels, tree):
     changed = int(((img - before).abs() > 1e-3).any(-1).sum())
     check(changed > WIDTH * HEIGHT // 1000,
           f"the cube changed only {changed} pixels")
-    gen_ms = v.timer.records["gen_wire"]
     log(f"grid frame (grid_max_depth {depth}): {len(boxes)} boxes, "
-        f"{lines} line pixels; host gen_wire {[round(1e3 * x, 1) for x in gen_ms]} "
+        f"{lines} line pixels; host gen_wire {[round(1e3 * x, 1) for x in gen_s]} "
         f"ms (the walk {walk_ms:.1f} ms, the line raster {raster_ms:.1f} ms); "
         f"first frame {first_ms:.3f} ms, parked {parked_ms:.3f} ms (overlay "
         f"cached), 3-degree orbit poses {poses} ms; the cube mesh "
@@ -2768,8 +2792,10 @@ def web_path(P, kernels, tree):
 
 
 def profiling_path(P, kernels, tree):
-    """trace() around 3 Viewer frames: the trace holds the kernels' names
-    and the annotate() name.  Returns the launch counts of the frames."""
+    """trace() around 3 Viewer frames: the trace holds the kernels' names,
+    the annotate() name and the Viewer's spans, and beside it the span
+    lines and the card's idle seconds by span.  Returns the launch counts
+    of the frames."""
     from mega_nerf_viewer_tpu_torch.utils.profiling import annotate, trace
     v = P.Viewer(tree, camera=camera(P.Camera, WIDTH, HEIGHT, FOCAL))
     kernels.reset_launch_counts()
@@ -2782,18 +2808,30 @@ def profiling_path(P, kernels, tree):
                 with annotate("chip_smoke_frame"):
                     v.render(fetch=False)
         trace_s = time.perf_counter() - t
-        path = os.path.join(td, os.listdir(td)[0])
+        pid = os.getpid()
+        files = sorted(os.listdir(td))
+        path = os.path.join(td, f"trace.{pid}.json")
         size = os.path.getsize(path)
         with open(path) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        with open(os.path.join(td, f"idle.{pid}.json")) as f:
+            idle = json.load(f)
+        with open(os.path.join(td, f"spans.{pid}.jsonl")) as f:
+            roots = sum(json.loads(ln).get("name") == "viewer.render"
+                        for ln in f)
     kern = sorted(n for n in names if n.split("(")[0].endswith(
         ("march_kernel", "skip_prepass_kernel")))
     check(any("march_kernel" in n for n in kern)
           and any("skip_prepass_kernel" in n for n in kern),
           f"the trace lacks the kernels: {sorted(names)[:40]}")
     check("chip_smoke_frame" in names, "the trace lacks the annotation")
+    check({"viewer.render", "frame.march", "sync.flags"} <= names,
+          "the trace lacks the Viewer's spans")
+    check(roots == 3 and idle, f"the span lines hold {roots} frames, the "
+          f"idle seconds by span {idle}")
     log(f"profiling: trace() of 3 frames in {trace_s:.2f} s, {size} bytes, "
-        f"holds {kern} and 'chip_smoke_frame'")
+        f"holds {kern} and 'chip_smoke_frame'; beside it {files}, the "
+        f"card's idle seconds by span {idle}")
     return read_launches(kernels, ("skip_prepass", "march"), "profiling")
 
 
@@ -4844,7 +4882,8 @@ def deep_viewer(P, kernels, tree, model, want):
           f"the splitting frame: capacity {cap0} -> {cap1}")
     check(v._leaf_map is None, "the edit left the leaf map standing")
     v.options = v.options.replace(use_splitting=False)
-    img, rebuild_s, base, gib = built(lambda: v.render(fetch=False))
+    with host_profile():
+        img, rebuild_s, base, gib = built(lambda: v.render(fetch=False))
     lm = v._leaf_map
     check(lm.level == HUGE_LEVEL and bool(torch.isfinite(img).all()),
           f"the rebuilt map is level {lm.level}")
@@ -4861,7 +4900,7 @@ def deep_viewer(P, kernels, tree, model, want):
         + f"; splitting frame {edit_ms:.1f} ms "
         f"({cap0} -> {cap1} chunks); the next frame {rebuild_s * 1e3:.1f} ms "
         f"rebuilt the map (level {lm.level}, +{lm.deep_levels} deep) in "
-        f"{v.timer.records['leaf_map_build'][-1]:.2f} s, peak "
+        f"{span_seconds('viewer.leaf_map_build')[-1]:.2f} s, peak "
         f"+{gib:.2f} GiB over {base:.2f} GiB resident")
     return v
 

@@ -45,6 +45,7 @@ from .. import kernels
 from ..device import host_tensor, resolve_device
 from ..n3tree.tree import N3Tree
 from ..options import RenderOptions
+from ..utils import profiling
 from .fp import fma_f32, pow2_f32, rsqrt_f32
 from .rays import (rodrigues, screen2worlddir, screen2worlddir_indices,
                    sq_norm)
@@ -584,67 +585,79 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     overflowed even that.  Nothing crosses to the host.  ``on_flags``, if
     given, is called with a dict of the frame's overflow counts (device
     tensors) as soon as the marches are queued, before the unpermute and
-    the composite."""
+    the composite.
+
+    Under a profiler session the frame's host work is four spans:
+    ``frame.raygen`` (padding, the camera's upload, the rays),
+    ``frame.setup`` (the per-ray setup and the prepass), ``frame.march``
+    (the per-segment marches) and ``frame.assemble`` (the segments'
+    concatenation, the unpermute gathers, the composite, the hints), the
+    device fallback a ``frame.fallback`` span inside the last."""
     dev = tree.device
     R = (perm if inv is None else inv).shape[0]
-    n_total = sum(c for c, _ in seg_counts) * chunk_size
-    pad = n_total - R
-    pix = perm if not pad else torch.cat([perm, perm[-1:].expand(pad)])
-    transform = host_tensor(camera.transform, torch.float32, dev)
-    dirs_p, cen = screen2worlddir_indices(
-        pix, camera.width, camera.fx, camera.fy, camera.cx, camera.cy,
-        transform)
-    vdirs_p = rodrigues(opt.rot_dirs, dirs_p)
+    with profiling.annotate("frame.raygen"):
+        n_total = sum(c for c, _ in seg_counts) * chunk_size
+        pad = n_total - R
+        pix = perm if not pad else torch.cat([perm, perm[-1:].expand(pad)])
+        transform = host_tensor(camera.transform, torch.float32, dev)
+        dirs_p, cen = screen2worlddir_indices(
+            pix, camera.width, camera.fx, camera.fy, camera.cx, camera.cy,
+            transform)
+        vdirs_p = rodrigues(opt.rot_dirs, dirs_p)
     # the per-ray setup and the prepass run once for the whole frame;
     # each segment then marches its slice with its own budget
-    m, skips = _prepass(march_inputs(tree, dirs_p, vdirs_p, cen, opt),
-                        skip_table)
+    with profiling.annotate("frame.setup"):
+        m, skips = _prepass(march_inputs(tree, dirs_p, vdirs_p, cen, opt),
+                            skip_table)
 
     parts = [[] for _ in range(5)]     # out, steps, nrec, split, sample
     ovs = []
     votes = _vote_knobs(opt) if need_votes else None
     off = 0
-    for c_chunks, md in seg_counts:
-        if c_chunks == 0:
-            # keep the overflow vector index-aligned with the segments
-            ovs.append(torch.zeros((), dtype=torch.int32, device=dev))
-            continue
-        sl = slice(off, off + c_chunks * chunk_size)
-        res = fused_march(tree, leaf_map, slice_rays(m, sl), md,
-                          chunk_size, votes)
-        ovs.append(res[1])
-        for lst, r in zip(parts, res[:1] + res[2:]):
-            lst.append(r)
-        off += c_chunks * chunk_size
-    bufs = tuple(torch.cat(lst, 0) for lst in parts if lst)
-    seg_overflow = torch.stack(ovs)
-    flags = dict(seg_overflow=seg_overflow)
-    if device_fallback:
-        flags["fb_overflow"] = fused_march(
-            tree, leaf_map, m, _FALLBACK_MD, chunk_size, votes,
-            gate=seg_overflow, into=bufs)[1]
-    if on_flags is not None:
-        on_flags(flags)
+    with profiling.annotate("frame.march"):
+        for c_chunks, md in seg_counts:
+            if c_chunks == 0:
+                # keep the overflow vector index-aligned with the segments
+                ovs.append(torch.zeros((), dtype=torch.int32, device=dev))
+                continue
+            sl = slice(off, off + c_chunks * chunk_size)
+            res = fused_march(tree, leaf_map, slice_rays(m, sl), md,
+                              chunk_size, votes)
+            ovs.append(res[1])
+            for lst, r in zip(parts, res[:1] + res[2:]):
+                lst.append(r)
+            off += c_chunks * chunk_size
+    with profiling.annotate("frame.assemble"):
+        bufs = tuple(torch.cat(lst, 0) for lst in parts if lst)
+        seg_overflow = torch.stack(ovs)
+        flags = dict(seg_overflow=seg_overflow)
+        if device_fallback:
+            with profiling.annotate("frame.fallback"):
+                flags["fb_overflow"] = fused_march(
+                    tree, leaf_map, m, _FALLBACK_MD, chunk_size, votes,
+                    gate=seg_overflow, into=bufs)[1]
+        if on_flags is not None:
+            on_flags(flags)
 
-    out, steps, nrec = (b[:R] for b in bufs[:3])
-    if sorted_output:
-        pass
-    elif group > 1 and R % group == 0:
-        ginv = torch.div(inv[::group], group, rounding_mode="floor")
-        out = out.reshape(R // group, 4 * group)[ginv].reshape(R, 4)
-    else:
-        out = out[inv]
-    ret = dict(img=composite_background(out, opt), **flags)
-    if need_votes:
-        ret["split_vote"] = bufs[3][:R][inv]
-        ret["sample_vote"] = bufs[4][:R][inv]
-    if return_hints == "packed":
-        # one [R] i32 and one unpermute gather instead of three
-        ret["hints_packed"] = pack_hints(steps, nrec, skips[:R])[inv]
-    elif return_hints:
-        ret["steps"] = steps[inv]
-        ret["nrec"] = nrec[inv]
-        ret["skips"] = skips[:R][inv]
+        out, steps, nrec = (b[:R] for b in bufs[:3])
+        if sorted_output:
+            pass
+        elif group > 1 and R % group == 0:
+            ginv = torch.div(inv[::group], group, rounding_mode="floor")
+            out = out.reshape(R // group, 4 * group)[ginv].reshape(R, 4)
+        else:
+            out = out[inv]
+        ret = dict(img=composite_background(out, opt), **flags)
+        if need_votes:
+            ret["split_vote"] = bufs[3][:R][inv]
+            ret["sample_vote"] = bufs[4][:R][inv]
+        if return_hints == "packed":
+            # one [R] i32 and one unpermute gather instead of three
+            ret["hints_packed"] = pack_hints(steps, nrec, skips[:R])[inv]
+        elif return_hints:
+            ret["steps"] = steps[inv]
+            ret["nrec"] = nrec[inv]
+            ret["skips"] = skips[:R][inv]
     return ret
 
 
@@ -653,14 +666,17 @@ def block_permutation(width: int, height: int, block: int = 16,
     """Pixel permutation grouping rays into square ``block`` x ``block``
     pixel blocks, plus its inverse (int64 tensors on ``device``)."""
     device = resolve_device(device)
-    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
-    nbx = (width + block - 1) // block
-    key = (((ys // block) * nbx + xs // block) * (block * block)
-           + (ys % block) * block + (xs % block))
-    perm = np.argsort(key.reshape(-1), kind="stable")
-    inv = np.argsort(perm, kind="stable")
-    return (torch.from_numpy(perm).to(device),
-            torch.from_numpy(inv).to(device))
+    profiling.count("block_permutations")
+    with profiling.annotate("accel.block_permutation"):
+        ys, xs = np.meshgrid(np.arange(height), np.arange(width),
+                             indexing="ij")
+        nbx = (width + block - 1) // block
+        key = (((ys // block) * nbx + xs // block) * (block * block)
+               + (ys % block) * block + (xs % block))
+        perm = np.argsort(key.reshape(-1), kind="stable")
+        inv = np.argsort(perm, kind="stable")
+        return (torch.from_numpy(perm).to(device),
+                torch.from_numpy(inv).to(device))
 
 
 def _argsort_stable(key: torch.Tensor):
@@ -787,9 +803,10 @@ def segments_from_hint_cdf(cdf_counts, R: int,
     real boundary and only the remainder pays the top (the heavy-tail
     rule, ``:1079-1085``).  ``headroom`` (motion) gives each non-zero
     class the next ladder budget."""
-    counts = np.asarray(cdf_counts.cpu() if isinstance(cdf_counts,
-                                                       torch.Tensor)
-                        else cdf_counts)
+    if isinstance(cdf_counts, torch.Tensor):
+        with profiling.host_sync("segments_cdf"):
+            cdf_counts = cdf_counts.cpu()
+    counts = np.asarray(cdf_counts)
     top = int(classes[-1])
     if counts.shape[0] == len(classes) + 1:
         need = int(counts[-1])
@@ -989,9 +1006,10 @@ def seg_counts_from_hints(nrec_sorted, chunk_size: int,
     moving the remainder into the next, richer run.  Returns
     ``((n_chunks, budget), ...)``, the ``seg_counts`` layout; raises
     ``ValueError`` when a hint exceeds the largest budget."""
-    nh = np.asarray(nrec_sorted.cpu() if isinstance(nrec_sorted,
-                                                    torch.Tensor)
-                    else nrec_sorted)
+    if isinstance(nrec_sorted, torch.Tensor):
+        with profiling.host_sync("seg_counts"):
+            nrec_sorted = nrec_sorted.cpu()
+    nh = np.asarray(nrec_sorted)
     R = nh.size
     pad = (-R) % (chunk_size * max(quantum, 1))
     if pad:
@@ -1231,12 +1249,13 @@ def render_frame_motion(tree: N3Tree, leaf_map: LeafMap, camera,
     if hint_stride == 2 and stale_perm.shape[0] * 4 != R:
         raise ValueError("hint_stride=2 needs the R/4 quarter order")
     n_chunks = (R + chunk_size - 1) // chunk_size
-    res = _motion_core(
-        tree, leaf_map, stale_perm, camera, opt, skip_table,
-        seg_counts=segment_chunks(n_chunks, tuple(segments), n_rays=R,
-                                  chunk_size=chunk_size),
-        chunk_size=chunk_size, hint_chunk=int(hint_chunk or chunk_size),
-        hint_stride=hint_stride, on_flags=on_flags)
+    with profiling.annotate("accel.motion"):
+        res = _motion_core(
+            tree, leaf_map, stale_perm, camera, opt, skip_table,
+            seg_counts=segment_chunks(n_chunks, tuple(segments), n_rays=R,
+                                      chunk_size=chunk_size),
+            chunk_size=chunk_size, hint_chunk=int(hint_chunk or chunk_size),
+            hint_stride=hint_stride, on_flags=on_flags)
     return (res["img"].reshape(h, w, 4), res["seg_overflow"],
             (res["perm"], res["inv"]), res["cdf"], res.get("qperm"))
 

@@ -28,9 +28,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..utils import profiling
 
 RAY_AXIS = "rays"
 MODEL_AXIS = "model"
@@ -197,12 +197,12 @@ def default_mesh(devices: Optional[Sequence] = None,
 _OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
 
 
-# each collective runs inside a profiler range named after it, so that a
-# trace shows the collectives' share of a frame
+# each collective runs inside a span named after it, so that a trace
+# shows the collectives' share of a frame
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     """``t`` reduced over ``group`` with ``op`` ("max" or "sum"); a new
     tensor on ``t``'s device."""
-    with record_function("parallel.all_reduce"):
+    with profiling.annotate("parallel.all_reduce"):
         buf = t.detach().contiguous().clone()
         dist.all_reduce(buf, op=_OPS[op], group=group)
         return buf
@@ -211,7 +211,7 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along dim 0 in the
     group's rank order, on ``t``'s device."""
-    with record_function("parallel.all_gather"):
+    with profiling.annotate("parallel.all_gather"):
         buf = t.detach().contiguous()
         parts = [torch.empty_like(buf)
                  for _ in range(dist.get_world_size(group))]
@@ -223,7 +223,7 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """Rank ``src``'s ``t`` on every rank (``t`` is the receive buffer
     elsewhere); a tensor on ``t``'s device."""
     group = group or dist.group.WORLD
-    with record_function("parallel.broadcast"):
+    with profiling.annotate("parallel.broadcast"):
         buf = t.detach().contiguous().clone()
         dist.broadcast(buf, src=src, group=group)
         return buf

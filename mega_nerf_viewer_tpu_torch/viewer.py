@@ -90,7 +90,8 @@ from .ops.render import (RenderResult, composite_background,
                          fresh_visit_tracker, render_frame, render_rays,
                          to_rgba8)
 from .ops.skip_prepass import build_skip_table
-from .utils.metrics import FpsCounter, FrameTimer
+from .utils import profiling
+from .utils.metrics import FpsCounter
 from .utils.png import write_png
 from .utils.tuning import device_tuning
 from .utils.wireframe import grid_overlay
@@ -195,7 +196,10 @@ class Viewer:
         # honoured by set()/load_state even before a tree is given
         self.max_tree_capacity = max_tree_capacity
         self.fps = FpsCounter()
-        self.timer = FrameTimer()
+        # frames rendered: the id the spans of each frame share
+        self.frame_id = 0
+        # the last frame's path (the ``path`` of its ``viewer.render`` span)
+        self._path = None
         self._visit_tracker = None
         # True once a visit-tracked frame has fed the tracker since its
         # last reset: a prune on an unfed tracker would delete every
@@ -389,7 +393,21 @@ class Viewer:
         f32 RGBA as a numpy array; ``fetch=False`` returns the device
         tensor without the copy to the host (under ``host_unpermute`` a
         parked frame is then flat [R, 4] rows in ray order: pair it with
-        :meth:`frame_index_map`)."""
+        :meth:`frame_index_map`).
+
+        Under a profiler session the frame is the span ``viewer.render``
+        with its ``frame_id`` and its ``path``: ``fast`` (the hint frame),
+        ``segmented``, ``redo``, ``motion``, ``guided``, ``foveated``,
+        ``grid`` or ``exact``."""
+        self.frame_id += 1
+        profiling.count("frames")
+        self._path = None
+        with profiling.annotate("viewer.render", frame=self.frame_id) as sp:
+            out = self._render(fetch)
+            sp.set(path=self._path)
+        return out
+
+    def _render(self, fetch: bool):
         cam = self.camera
         opt = self.options
         cam._update()
@@ -439,25 +457,25 @@ class Viewer:
         elif not camera_changed:
             self._fov_motion_gated = False
         if fov_ok:
-            with self.timer.time("render"):
-                img = self._render_foveated(camera_changed)
+            self._path = "foveated"
+            img = self._render_foveated(camera_changed)
         elif opt.use_guided_sampling and not cam.is_dragging() \
                 and self.model is not None:
+            self._path = "guided"
             img, res = self._render_guided(track_visit)
         elif opt.show_grid or self.meshes:
-            with self.timer.time("render"):
-                img, res = self._render_with_grid(track_visit)
+            self._path = "grid"
+            img, res = self._render_with_grid(track_visit)
         elif self.use_fast_path and self.tree.N == 2 and not track_visit:
             # leaf-map path, votes included when refining; each expand
             # drops the map and the next frame rebuilds it
-            with self.timer.time("render"):
-                img, res = self._render_fast(need_votes=needs_votes)
+            img, res = self._render_fast(need_votes=needs_votes)
         else:
-            with self.timer.time("render"):
-                img, res = render_frame(
-                    self.tree, cam.width, cam.height, cam.fx, cam.fy,
-                    cam.cx, cam.cy, cam.transform, opt,
-                    track_visit=track_visit)
+            self._path = "exact"
+            img, res = render_frame(
+                self.tree, cam.width, cam.height, cam.fx, cam.fy,
+                cam.cx, cam.cy, cam.transform, opt,
+                track_visit=track_visit)
         if track_visit and res is not None:
             self._visit_tracker = torch.maximum(self._visit_tracker,
                                                 res.visited)
@@ -478,14 +496,15 @@ class Viewer:
             self._prune_happened = False
 
         self.fps.tick()
-        if self._frame_sorted:
-            if fetch:
-                # the display consumer applies the index map the device
-                # skipped (bit-identical pixels)
-                return img.cpu().numpy()[self._inv_host].reshape(
-                    cam.height, cam.width, 4)
+        if not fetch:
             return img
-        return img.cpu().numpy() if fetch else img
+        with profiling.host_sync("fetch"):
+            img = img.cpu().numpy()
+        if self._frame_sorted:
+            # the display consumer applies the index map the device
+            # skipped (bit-identical pixels)
+            return img[self._inv_host].reshape(cam.height, cam.width, 4)
+        return img
 
     def frame_index_map(self):
         """Host inverse ray order for the last frame when it was delivered
@@ -499,7 +518,8 @@ class Viewer:
         ``host_unpermute`` the index map is applied here as one u32 numpy
         gather."""
         img = self.render(fetch=False)
-        rgba = to_rgba8(torch.as_tensor(img)).cpu().numpy()
+        with profiling.host_sync("fetch"):
+            rgba = to_rgba8(torch.as_tensor(img)).cpu().numpy()
         if self._frame_sorted:
             cam = self.camera
             flat = np.ascontiguousarray(rgba.reshape(-1, 4))
@@ -523,7 +543,7 @@ class Viewer:
                 or not self.use_turbo_map):
             self._leaf_map = None
         if self._leaf_map is None:
-            with self.timer.time("leaf_map_build"):
+            with profiling.annotate("viewer.leaf_map_build"):
                 if self.use_turbo_map and not need_votes:
                     self._leaf_map = accel.build_turbo_leaf_map(
                         self.tree, sigma_thresh=opt.sigma_thresh)
@@ -575,31 +595,39 @@ class Viewer:
             # follow the dilated CDF, with one ladder step of headroom
             # except under the async policy, whose tolerance absorbs the
             # rays that outrun the window
-            window = self._estimate_dilation()
-            if window:
-                dh = accel.dilate_packed(hints, width=w, height=h,
-                                         window=window)
-                order = self._ray_order = accel.order_from_packed_device(dh)
-                hroom = policy != "async"
-                src = ("dil", window, hroom)
-                if self._segments_src != src:
-                    cdf = accel.hint_class_cdf_packed(dh)
-                    self._segments = list(accel.segments_from_hint_cdf(
-                        cdf.cpu().numpy(), R, headroom=hroom))
-                    self._segments_src = src
-            else:
-                order = self._ray_order = accel.order_from_packed_device(
-                    hints)
+            profiling.count("reorders")
+            with profiling.annotate("viewer.reorder"):
+                window = self._estimate_dilation()
+                if window:
+                    dh = accel.dilate_packed(hints, width=w, height=h,
+                                             window=window)
+                    order = self._ray_order = \
+                        accel.order_from_packed_device(dh)
+                    hroom = policy != "async"
+                    src = ("dil", window, hroom)
+                    if self._segments_src != src:
+                        cdf = accel.hint_class_cdf_packed(dh)
+                        with profiling.host_sync("reorder_cdf"):
+                            cdf = cdf.cpu().numpy()
+                        self._segments = list(accel.segments_from_hint_cdf(
+                            cdf, R, headroom=hroom))
+                        self._segments_src = src
+                else:
+                    order = self._ray_order = \
+                        accel.order_from_packed_device(hints)
             self._order_stale = False
         overflow = False
+        redo = False
         if order is not None:
+            self._path = "segmented"
             segments = self._segments or list(accel.DEFAULT_SEGMENTS)
             # sorted delivery only on parked frames: a moved frame's fresh
             # inv would cost a blocking [R] fetch
             use_sorted = (self.host_unpermute and not need_votes
                           and not frame_moved)
             if use_sorted and self._inv_src is not order[1]:
-                self._inv_host = order[1].cpu().numpy()
+                with profiling.host_sync("inv"):
+                    self._inv_host = order[1].cpu().numpy()
                 self._inv_src = order[1]
             self._frame_sorted = use_sorted
             # packed hints feed the device order only
@@ -627,14 +655,14 @@ class Viewer:
                 if want_hints:
                     self._hints_packed = out[-1]
             else:
-                ov = out[1].cpu().numpy()
+                with profiling.host_sync("flags"):
+                    ov = out[1].cpu().numpy()
                 if ov.any():
                     # stale budgets: escalate the overflowed segments and
                     # redo this frame as a hint frame (never the exact cliff)
-                    self._segments = [
-                        (f, min(max(1, md * 2), 128)
-                         if ov[min(i, len(ov) - 1)] else md)
-                        for i, (f, md) in enumerate(segments)]
+                    profiling.count("overflow_rays", int(ov.sum()))
+                    self._segments = self._escalated(segments, ov)
+                    redo = True
                     order = None
                 else:
                     img = out[0]
@@ -646,43 +674,17 @@ class Viewer:
         if order is None:
             # no order yet (first frame at this resolution, or a redo):
             # one budget for the whole frame, escalated until it fits
-            self._frame_sorted = False
-            md = self.fast_max_dense
-            while True:
-                out = accel.render_frame_fast(
-                    self.tree, self._leaf_map, self.camera, self.options,
-                    max_dense=md, chunk_size=self.fast_chunk_size,
-                    need_votes=need_votes, return_nrec=True,
-                    skip_table=skip_table, return_skips=True)
-                overflow = bool(out[1])
-                if not overflow or md >= 128:
-                    break
-                md *= 2
-                self.fast_max_dense = md
+            self._path = "redo" if redo else "fast"
+            if redo:
+                profiling.count("redos")
+            with profiling.annotate("viewer.redo" if redo
+                                    else "viewer.hint_frame"):
+                out, overflow = self._hint_frame(need_votes, skip_table, R)
+            img = out[0]
             if need_votes:
-                img, _, steps, split_vote, sample_vote, nrec, skips = out
-            else:
-                img, _, steps, nrec, skips = out
-            if self.use_device_order:
-                ph = accel.pack_hints(steps, nrec, skips)
-                self._ray_order = accel.order_from_packed_device(ph)
-                self._hints_packed = ph
-                # exact hints of a parked camera: CDF-matched budgets
-                self._last_cdf = accel.hint_class_cdf(nrec).cpu().numpy()
-                self._segments = list(accel.segments_from_hint_cdf(
-                    self._last_cdf, R))
-                self._segments_src = ("steady",)
-                self._segments_motion = None     # re-derived per episode
-                self._order_back = np.asarray(
-                    self.camera.transform, np.float32)[:3, :].copy()
-            else:
-                # the host path (viewer.py:779-780): the hints fetched, the
-                # order sorted on the host and uploaded
-                order = accel.order_from_hints(steps.cpu(), nrec.cpu(),
-                                               skips.cpu())
-                self._ray_order = tuple(o.to(self.device) for o in order)
-            self._order_stale = False
+                split_vote, sample_vote = out[3], out[4]
         if overflow:
+            self._path = "exact"
             self._frame_sorted = False       # exact-path fallback
             return render_frame(
                 self.tree, w, h, self.camera.fx, self.camera.fy,
@@ -692,6 +694,61 @@ class Viewer:
             return img, RenderResult(out=None, split_vote=split_vote,
                                      sample_vote=sample_vote, visited=None)
         return img, None
+
+    @staticmethod
+    def _escalated(segments, ov) -> list:
+        """``segments`` with the budget of each overflowed one (``ov``,
+        the host's flags) doubled, to 128 at most."""
+        esc = [bool(ov[min(i, len(ov) - 1)]) for i in range(len(segments))]
+        profiling.count("escalated_segments", sum(esc))
+        return [(f, min(max(1, md * 2), 128) if e else md)
+                for (f, md), e in zip(segments, esc)]
+
+    def _hint_frame(self, need_votes: bool, skip_table, R: int):
+        """The frame at one budget for all rays, doubled from
+        ``fast_max_dense`` until nothing overflows (or 128 does), and the
+        next frames' order, hints and budgets from its hints.  Returns
+        (``render_frame_fast``'s tuple, whether budget 128 overflowed)."""
+        self._frame_sorted = False
+        md = self.fast_max_dense
+        while True:
+            out = accel.render_frame_fast(
+                self.tree, self._leaf_map, self.camera, self.options,
+                max_dense=md, chunk_size=self.fast_chunk_size,
+                need_votes=need_votes, return_nrec=True,
+                skip_table=skip_table, return_skips=True)
+            with profiling.host_sync("hint_overflow"):
+                n_ov = int(out[1])
+            profiling.count("overflow_rays", n_ov)
+            if not n_ov or md >= 128:
+                break
+            md *= 2
+            profiling.count("budget_doublings")
+            self.fast_max_dense = md
+        steps, nrec, skips = out[2], out[-2], out[-1]
+        if self.use_device_order:
+            ph = accel.pack_hints(steps, nrec, skips)
+            self._ray_order = accel.order_from_packed_device(ph)
+            self._hints_packed = ph
+            # exact hints of a parked camera: CDF-matched budgets
+            cdf = accel.hint_class_cdf(nrec)
+            with profiling.host_sync("hint_cdf"):
+                self._last_cdf = cdf.cpu().numpy()
+            self._segments = list(accel.segments_from_hint_cdf(
+                self._last_cdf, R))
+            self._segments_src = ("steady",)
+            self._segments_motion = None     # re-derived per episode
+            self._order_back = np.asarray(
+                self.camera.transform, np.float32)[:3, :].copy()
+        else:
+            # the host path (viewer.py:779-780): the hints fetched, the
+            # order sorted on the host and uploaded
+            with profiling.host_sync("host_hints"):
+                hints = (steps.cpu(), nrec.cpu(), skips.cpu())
+            order = accel.order_from_hints(*hints)
+            self._ray_order = tuple(o.to(self.device) for o in order)
+        self._order_stale = False
+        return out, bool(n_ov)
 
     def _render_foveated(self, camera_changed: bool) -> torch.Tensor:
         """The approximate foveated frame (``viewer.py:797-896``): the
@@ -782,7 +839,7 @@ class Viewer:
                    cam.transform.tobytes(), cam.fx, cam.fy,
                    cam.cx, cam.cy, cam.width, cam.height)
             if self._grid_cache is None or self._grid_cache[0] != key:
-                with self.timer.time("gen_wire"):
+                with profiling.annotate("viewer.gen_wire"):
                     overlay = grid_overlay(self.tree, cam,
                                            opt.grid_max_depth)
                 self._grid_cache = (key,) + overlay
@@ -828,11 +885,15 @@ class Viewer:
         if segments is None or self._segments_motion_src != ("rehint", R):
             cdf = self._last_cdf
             if cdf is None:
-                cdf = accel.hint_class_cdf_packed(hints).cpu().numpy()
+                cdf = accel.hint_class_cdf_packed(hints)
+                with profiling.host_sync("rehint_cdf"):
+                    cdf = cdf.cpu().numpy()
             segments = list(accel.segments_from_hint_cdf(cdf, R, margin=1))
             self._segments_motion = segments
             self._segments_motion_src = ("rehint", R)
         self._frame_sorted = False
+        self._path = "motion"
+        profiling.count("rehints")
         flags = {}
         img, _, order, _, qperm = accel.render_frame_motion(
             self.tree, self._leaf_map, self.camera, self.options,
@@ -869,7 +930,9 @@ class Viewer:
                 return                    # keep the newest pending flags
         self._pending_ov = None
         segments, seg_ov, _, R, moved = pending[:5]
-        counts = _host_array(seg_ov)
+        with profiling.host_sync("pending_flags"):
+            counts = _host_array(seg_ov)
+        profiling.count("overflow_rays", int(counts.sum()))
         tol = 0
         if self.overflow_policy == "async" and moved:
             tol = int(R * self.motion_overflow_tolerance)
@@ -880,14 +943,16 @@ class Viewer:
             if ov.any():
                 # the order is measured every pose: only the budgets are
                 # re-derived, from the last pose's CDF
-                cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
+                with profiling.host_sync("pending_cdf"):
+                    cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
                 self._segments_motion = list(accel.segments_from_hint_cdf(
                     cdf, R, margin=1))
                 self._segments_motion_src = ("rehint", R)
             elif self._segments_motion is not None:
                 # a clean check settles the budgets at the settled margin,
                 # when that is cheaper than the running tuple
-                cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
+                with profiling.host_sync("pending_cdf"):
+                    cdf = self._last_cdf = _host_array(self._motion_cdf_dev)
                 cand = list(accel.segments_from_hint_cdf(
                     cdf, R, margin=int(self.motion_settled_margin)))
 
@@ -911,16 +976,15 @@ class Viewer:
                     and self._segments_src != ("steady",)):
                 self._clean_streak = 0
                 cdf = accel.hint_class_cdf_packed(self._hints_packed)
-                self._last_cdf = cdf.cpu().numpy()
+                with profiling.host_sync("pending_cdf"):
+                    self._last_cdf = cdf.cpu().numpy()
                 self._segments = list(accel.segments_from_hint_cdf(
                     self._last_cdf, R))
                 self._segments_src = ("steady",)
                 self._segments_motion = None
             return
         self._clean_streak = 0
-        self._segments = [
-            (f, min(max(1, md * 2), 128) if ov[min(i, len(ov) - 1)]
-             else md) for i, (f, md) in enumerate(segments)]
+        self._segments = self._escalated(segments, ov)
         self._segments_src = ("esc",)
         # the overflowed frame's hints are capped at the starved budgets:
         # the next frame is a hint frame (and, if even budget 128
@@ -973,7 +1037,7 @@ class Viewer:
                 and self._guided_cache[1] is None):
             self._can_reuse_results = False
         if not self._can_reuse_results or self._guided_cache is None:
-            with self.timer.time("guided_sampling"):
+            with profiling.annotate("viewer.guided_sampling"):
                 if (self.use_fast_path and self.tree.N == 2
                         and not needs_votes and not track_visit):
                     cache = self._collect_fast(cam, opt)
@@ -993,7 +1057,7 @@ class Viewer:
         if self._guided_img_cache is not None \
                 and self._guided_img_cache[0] == key:
             return self._guided_img_cache[1], res
-        with self.timer.time("nerf_composite"):
+        with profiling.annotate("viewer.nerf_composite"):
             img = guided.composite_frame(self.tree, cam, opt, cache)
         self._guided_img_cache = (key, img)
         return img, res
@@ -1038,8 +1102,10 @@ class Viewer:
                                          or self._guided_seg_src != src):
             classes = accel.class_ladder(int(opt.max_guided_samples))
             cdf = accel.hint_class_cdf(ns_h, classes=classes)
+            with profiling.host_sync("guided_cdf"):
+                cdf = cdf.cpu().numpy()
             self._guided_segments = accel.segments_from_hint_cdf(
-                cdf.cpu().numpy(), R, classes=classes,
+                cdf, R, classes=classes,
                 headroom=bool(window))
             self._guided_seg_src = src
         return cache

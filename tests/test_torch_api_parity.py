@@ -9,8 +9,8 @@ with JAX's parameter names first, in JAX's order, and the same method kind
 (or, for ``Viewer.get_backend``, one that answers on the class and on an
 instance).  Parameters the port adds come after JAX's and are among
 ``PORT_ONLY``.  ``ALLOWED`` names what deliberately differs, each with its
-reason; a case holds that each entry still differs, so the list cannot go
-stale.  The last cases call the repaired signatures the JAX way.
+reason (an entry naming a class covers its methods); a case holds that
+each entry still differs, so the list cannot go stale.  The last cases call the repaired signatures the JAX way.
 """
 
 import importlib
@@ -67,6 +67,11 @@ ALLOWED = {
     "ops.pallas_composite":
         "Pallas module: the port's compositors are ops/compact_composite.py "
         "and ops/padded_composite.py",
+    "utils.profiling.FrameStats":
+        "the port's spans and counters take its place (recorded(), and "
+        "trace()'s JSON lines)",
+    "utils.profiling.annotate":
+        "the port's span takes attributes (`frame=`, the Viewer's `path`)",
 }
 
 
@@ -173,7 +178,7 @@ def test_module_matches_jax(rel):
         assert set(getattr(pm, "__all__", ())) == set(jall), rel
     faults = {}
     for q, jobj, kind in _public(jm, rel):
-        if q in ALLOWED:
+        if q in ALLOWED or q.rsplit(".", 1)[0] in ALLOWED:
             continue
         why = _mismatch(q, jobj, kind)
         if why:
@@ -190,9 +195,11 @@ def test_allowed_entry_still_differs(q):
             _module(PPKG, q)
         return
     rel, name = q.rsplit(".", 1)
-    entry = [e for e in _public(_module(JPKG, rel), rel) if e[0] == q]
+    entry = [e for e in _public(_module(JPKG, rel), rel)
+             if e[0] == q or e[0].rsplit(".", 1)[0] == q]
     assert entry, f"{q} is no longer public in the JAX package"
-    assert _mismatch(*entry[0]) is not None, f"{q} no longer differs"
+    assert any(_mismatch(*e) is not None for e in entry), \
+        f"{q} no longer differs"
 
 
 def test_ops_exports_jax_names():
