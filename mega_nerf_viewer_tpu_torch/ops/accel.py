@@ -19,7 +19,9 @@ leaf-map voxel frame:
     sorts rays by the previous frame's hints (:func:`order_from_hints`)
     and marches each segment with its own ``max_dense`` budget; with
     ``device_fallback`` a gated launch of the march re-marches the whole
-    frame at budget 128 when a segment overflowed, decided on the card.
+    frame at budget 128 when a segment overflowed, decided on the card;
+    :func:`repair_segments` re-marches only the overflowed segments of a
+    queued frame, after the host read its flags (the sync policy's redo).
   * The re-hint motion frame (:func:`render_frame_motion`): a budget-0
     count march over a stale order measures each ray's record need, the
     rays are sorted by it and the segmented frame marches at steady
@@ -563,7 +565,8 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                 *, seg_counts: tuple, chunk_size: int,
                 return_hints, group: int = 1,
                 sorted_output: bool = False, need_votes: bool = False,
-                device_fallback: bool = False, on_flags=None):
+                device_fallback: bool = False, on_flags=None,
+                repair: bool = False):
     """One fast frame: raygen in ``perm`` order -> setup -> (prepass) ->
     march per segment -> unpermute -> background composite.  ``seg_counts`` =
     ((n_chunks, max_dense), ...); the frame is padded to whole chunks
@@ -585,7 +588,9 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     overflowed even that.  Nothing crosses to the host.  ``on_flags``, if
     given, is called with a dict of the frame's overflow counts (device
     tensors) as soon as the marches are queued, before the unpermute and
-    the composite.
+    the composite.  ``repair`` adds the frame's :class:`FrameRepair`
+    under ``"repair"``, for :func:`repair_segments`: references to what the
+    frame already holds, so asking adds no device work and no allocation.
 
     Under a profiler session the frame's host work is four spans:
     ``frame.raygen`` (padding, the camera's upload, the rays),
@@ -638,27 +643,114 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                     gate=seg_overflow, into=bufs)[1]
         if on_flags is not None:
             on_flags(flags)
-
-        out, steps, nrec = (b[:R] for b in bufs[:3])
-        if sorted_output:
-            pass
-        elif group > 1 and R % group == 0:
-            ginv = torch.div(inv[::group], group, rounding_mode="floor")
-            out = out.reshape(R // group, 4 * group)[ginv].reshape(R, 4)
-        else:
-            out = out[inv]
-        ret = dict(img=composite_background(out, opt), **flags)
-        if need_votes:
-            ret["split_vote"] = bufs[3][:R][inv]
-            ret["sample_vote"] = bufs[4][:R][inv]
-        if return_hints == "packed":
-            # one [R] i32 and one unpermute gather instead of three
-            ret["hints_packed"] = pack_hints(steps, nrec, skips[:R])[inv]
-        elif return_hints:
-            ret["steps"] = steps[inv]
-            ret["nrec"] = nrec[inv]
-            ret["skips"] = skips[:R][inv]
+        ret = _assemble(bufs, skips, inv, R, opt, group=group,
+                        sorted_output=sorted_output, need_votes=need_votes,
+                        return_hints=return_hints)
+        ret.update(flags)
+        if repair:
+            ret["repair"] = FrameRepair(
+                tree, leaf_map, opt, m, bufs, skips, seg_overflow,
+                tuple(seg_counts), chunk_size, inv, group, camera.width,
+                camera.height)
     return ret
+
+
+def _assemble(bufs: tuple, skips: torch.Tensor, inv: Optional[torch.Tensor],
+              R: int, opt: RenderOptions, *, group: int,
+              sorted_output: bool, need_votes: bool, return_hints) -> dict:
+    """A frame from its march buffers (out, steps, nrec[, split_vote,
+    sample_vote], padded, in ``perm`` order) and the prepass ``skips``: the
+    unpermute, the background composite and, as asked, the votes and hints
+    in pixel order (the arguments as in :func:`_frame_core`).  Returns a
+    dict with ``img`` [R, 4] and the asked keys."""
+    out, steps, nrec = (b[:R] for b in bufs[:3])
+    if sorted_output:
+        pass
+    elif group > 1 and R % group == 0:
+        ginv = torch.div(inv[::group], group, rounding_mode="floor")
+        out = out.reshape(R // group, 4 * group)[ginv].reshape(R, 4)
+    else:
+        out = out[inv]
+    ret = dict(img=composite_background(out, opt))
+    if need_votes:
+        ret["split_vote"] = bufs[3][:R][inv]
+        ret["sample_vote"] = bufs[4][:R][inv]
+    if return_hints == "packed":
+        # one [R] i32 and one unpermute gather instead of three
+        ret["hints_packed"] = pack_hints(steps, nrec, skips[:R])[inv]
+    elif return_hints:
+        ret["steps"] = steps[inv]
+        ret["nrec"] = nrec[inv]
+        ret["skips"] = skips[:R][inv]
+    return ret
+
+
+class FrameRepair(NamedTuple):
+    """What :func:`repair_segments` needs to re-march part of a queued
+    segmented frame: the padded march inputs ``m`` and the frame's
+    concatenated march buffers ``bufs`` (out, steps, nrec[, split_vote,
+    sample_vote]), both in ``perm`` order, the prepass ``skips``, the
+    per-segment overflow counts and the frame's layout."""
+    tree: N3Tree
+    leaf_map: LeafMap
+    opt: RenderOptions
+    m: MarchInputs
+    bufs: tuple
+    skips: torch.Tensor
+    seg_overflow: torch.Tensor
+    seg_counts: tuple
+    chunk_size: int
+    inv: torch.Tensor
+    group: int
+    width: int
+    height: int
+
+
+def repair_segments(repair: FrameRepair, ov) -> tuple:
+    """Re-march each overflowed segment of a queued segmented frame at the
+    escalation protocol's ceiling (``_FALLBACK_MD``), then assemble the
+    frame again in pixel order.
+
+    ``repair`` is the frame's :class:`FrameRepair`
+    (:func:`render_frame_fast_segmented`'s ``return_repair``), ``ov`` the
+    host's copy of its per-segment overflow counts.  Each flagged segment's
+    slice of the inputs marches by the gated launch, gated on the segment's
+    own count, into its slice of the frame's buffers; the other segments
+    are not touched.  A ray's pixel, steps, record count, skips and votes
+    do not depend on its budget once it fits, so when the count returned
+    is 0 the frame and its hints are those of the frame at any one budget
+    that every ray fits: the hint frame's.
+
+    Returns ((img [H, W, 4], seg_overflow [n_segments] i32[, split_vote,
+    sample_vote]): the segmented frame's layout, in pixel order, without
+    hints; packed hints [R] i32 in pixel order; the repair's overflow count
+    [] i32, the rays beyond even ``_FALLBACK_MD``).  The re-marched rays
+    are counted in ``repaired_rays``."""
+    r = repair
+    R = r.inv.shape[0]
+    need_votes = len(r.bufs) > 3
+    votes = _vote_knobs(r.opt) if need_votes else None
+    seg_ov = list(r.seg_overflow.unbind())
+    n_rays = 0
+    off = 0
+    for i, (c_chunks, _) in enumerate(r.seg_counts):
+        sl = slice(off, off + c_chunks * r.chunk_size)
+        off = sl.stop
+        if c_chunks and ov[i]:
+            seg_ov[i] = fused_march(
+                r.tree, r.leaf_map, slice_rays(r.m, sl), _FALLBACK_MD,
+                r.chunk_size, votes, gate=r.seg_overflow[i:i + 1],
+                into=tuple(b[sl] for b in r.bufs))[1]
+            n_rays += sl.stop - sl.start
+    profiling.count("repaired_rays", n_rays)
+    seg_ov = torch.stack(seg_ov)
+    res = _assemble(r.bufs, r.skips, r.inv, R, r.opt, group=r.group,
+                    sorted_output=False, need_votes=need_votes,
+                    return_hints="packed")
+    out = (res["img"].reshape(r.height, r.width, 4), seg_ov)
+    if need_votes:
+        out = out + (res["split_vote"], res["sample_vote"])
+    return out, res["hints_packed"], seg_ov.sum(dtype=torch.int32)
 
 
 def block_permutation(width: int, height: int, block: int = 16,
@@ -1056,7 +1148,8 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
                                 return_hints: bool = False,
                                 sorted_output: bool = False,
                                 seg_counts: Optional[tuple] = None,
-                                *, on_flags=None):
+                                *, on_flags=None,
+                                return_repair: bool = False):
     """Record-sorted segmented fast frame.
 
     ``order`` comes from :func:`order_from_hints`; each contiguous ray
@@ -1069,16 +1162,19 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
     frame at budget 128 on the card when a segment overflowed (see
     :func:`_frame_core`), so the frame is right without a host check;
     ``fb_overflow`` counts the rays beyond even that.  ``on_flags``: see
-    :func:`_frame_core`.  ``unroll`` and ``dynamic_knobs`` are accepted and
-    inert, as in :func:`render_frame_fast`.
+    :func:`_frame_core`.  ``return_repair`` adds, last, the frame's
+    :class:`FrameRepair` for :func:`repair_segments` (None when the frame
+    marched in one launch, with fewer chunks than segments).  ``unroll``
+    and ``dynamic_knobs`` are accepted and inert, as in
+    :func:`render_frame_fast`.
 
     Returns (img [H, W, 4] — or flat [R, 4] rows in ``perm`` order when
     ``sorted_output``, so ``img[inv]`` is the pixel-order frame —,
     seg_overflow i32 counts [n_segments][, split_vote, sample_vote when
     ``need_votes``][, fb_overflow when ``device_fallback``][, steps, nrec,
     skips when ``return_hints``, or one :func:`pack_hints` array when
-    ``return_hints="packed"``], as in ``accel.py:1480-1484``); votes and
-    hints in pixel order.
+    ``return_hints="packed"``], as in ``accel.py:1480-1484``[, the
+    repair when ``return_repair``]); votes and hints in pixel order.
     """
     w, h = camera.width, camera.height
     R = w * h
@@ -1109,7 +1205,7 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
             out = out + (pack_hints(res[2], res[-2], res[-1]),)
         elif return_hints:
             out = out + (res[2], res[-2], res[-1])
-        return out
+        return out + (None,) if return_repair else out
     if seg_counts is None:
         seg_counts = segment_chunks(n_chunks, segments, n_rays=R,
                                     chunk_size=chunk_size)
@@ -1121,7 +1217,7 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
         seg_counts=tuple(seg_counts), chunk_size=chunk_size,
         return_hints=return_hints, group=group, sorted_output=sorted_output,
         need_votes=need_votes, device_fallback=device_fallback,
-        on_flags=on_flags)
+        on_flags=on_flags, repair=return_repair)
     img = res["img"] if sorted_output else res["img"].reshape(h, w, 4)
     out = (img, res["seg_overflow"])
     if need_votes:
@@ -1132,7 +1228,7 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
         out = out + (res["hints_packed"],)
     elif return_hints:
         out = out + (res["steps"], res["nrec"], res["skips"])
-    return out
+    return out + (res["repair"],) if return_repair else out
 
 
 # ----------------------------------------------------------------------

@@ -19,7 +19,10 @@ frame protocol is the JAX package's, under its three overflow policies
 (``overflow_policy``): the record-sorted segmented frame on a ray order
 from the previous frame's packed hints, and, when a segment overflowed,
 
-  * ``"sync"``: a redo with escalated budgets before the frame returns;
+  * ``"sync"``: a redo before the frame returns, which re-marches the
+    overflowed segments of the queued frame in place at budget 128 and
+    takes the next order and budgets from its exact hints
+    (``accel.repair_segments``), with the hint frame as its fallback;
   * ``"async"``: the frame returns as it is, and the next frame reads the
     flags and escalates (a moving frame may show a truncated band of up to
     ``motion_overflow_tolerance`` of its rays);
@@ -563,6 +566,10 @@ class Viewer:
     def _render_fast(self, need_votes: bool = False):
         """Leaf-map frame under the overflow policy (``viewer.py:560-795``);
         falls back to the exact renderer when even budget 128 overflows.
+        A sync overflow with the device order is repaired in place
+        (:meth:`_repair`: the overflowed segments re-marched, the rest of
+        the frame kept), and only a repair that still overflows, or a frame
+        with no repair, is redone as a hint frame (:meth:`_hint_frame`).
         Returns (img, res), res carrying the votes when asked, else None."""
         # whether this frame renders under a camera move
         frame_moved = bool(self._order_stale)
@@ -618,6 +625,7 @@ class Viewer:
             self._order_stale = False
         overflow = False
         redo = False
+        repair = None
         if order is not None:
             self._path = "segmented"
             segments = self._segments or list(accel.DEFAULT_SEGMENTS)
@@ -632,6 +640,9 @@ class Viewer:
             self._frame_sorted = use_sorted
             # packed hints feed the device order only
             want_hints = self.use_device_order
+            # a sync redo repairs the overflowed segments in place, where
+            # the packed hints give the next order
+            want_repair = policy == "sync" and want_hints
             flags = {}
             out = accel.render_frame_fast_segmented(
                 self.tree, self._leaf_map, self.camera, self.options,
@@ -642,7 +653,8 @@ class Viewer:
                 sorted_output=use_sorted,
                 device_fallback=policy == "device",
                 on_flags=(None if policy == "sync"
-                          else lambda f: flags.update(_to_host_later(f))))
+                          else lambda f: flags.update(_to_host_later(f))),
+                return_repair=want_repair)
             if policy != "sync":
                 # the flags are read at the top of the next frame: the
                 # device policy's frame is right already, the async one
@@ -657,9 +669,12 @@ class Viewer:
             else:
                 with profiling.host_sync("flags"):
                     ov = out[1].cpu().numpy()
+                if want_repair:
+                    # the repair is kept only for this frame's redo
+                    out, repair = out[:-1], (out[-1] if ov.any() else None)
                 if ov.any():
                     # stale budgets: escalate the overflowed segments and
-                    # redo this frame as a hint frame (never the exact cliff)
+                    # redo this frame (never the exact cliff)
                     profiling.count("overflow_rays", int(ov.sum()))
                     self._segments = self._escalated(segments, ov)
                     redo = True
@@ -672,17 +687,27 @@ class Viewer:
                         self._hints_packed = out[-1]
                     self._segments = segments
         if order is None:
-            # no order yet (first frame at this resolution, or a redo):
-            # one budget for the whole frame, escalated until it fits
+            # no order yet (first frame at this resolution), or a redo: the
+            # overflowed segments repaired in place, else one budget for
+            # the whole frame, escalated until it fits
             self._path = "redo" if redo else "fast"
             if redo:
                 profiling.count("redos")
             with profiling.annotate("viewer.redo" if redo
                                     else "viewer.hint_frame"):
-                out, overflow = self._hint_frame(need_votes, skip_table, R)
+                out = None if repair is None else self._repair(repair, ov, R)
+                repair = None
+                if out is not None:
+                    votes = out[2:4]
+                else:
+                    if redo:
+                        profiling.count("redo_fallbacks")
+                    out, overflow = self._hint_frame(need_votes, skip_table,
+                                                     R)
+                    votes = out[3:5]
             img = out[0]
             if need_votes:
-                split_vote, sample_vote = out[3], out[4]
+                split_vote, sample_vote = votes
         if overflow:
             self._path = "exact"
             self._frame_sorted = False       # exact-path fallback
@@ -703,6 +728,43 @@ class Viewer:
         profiling.count("escalated_segments", sum(esc))
         return [(f, min(max(1, md * 2), 128) if e else md)
                 for (f, md), e in zip(segments, esc)]
+
+    def _repair(self, repair, ov, R: int):
+        """The sync redo in place: the overflowed segments (``ov``, the
+        host's flags) of the frame behind ``repair`` re-marched at budget
+        128 (``accel.repair_segments``), and the next frames' order, hints
+        and budgets from its exact hints, as :meth:`_hint_frame` leaves
+        them; ``fast_max_dense`` doubles as the hint frame's loop would
+        have.  Returns the frame in ``render_frame_fast_segmented``'s
+        layout, or None (nothing set) when a ray needs more than 128
+        records."""
+        out, hints, n_ov = accel.repair_segments(repair, ov)
+        cdf = accel.hint_class_cdf_packed(hints)
+        with profiling.host_sync("hint_cdf"):
+            read = torch.cat([cdf, n_ov.reshape(1)]).cpu().numpy()
+        if read[-1]:
+            return None
+        self._frame_sorted = False
+        self._take_hints(hints, read[:-1], R)
+        self._order_stale = False
+        # the hint frame's loop doubles its budget until the hint max fits
+        while self.fast_max_dense < min(int(self._last_cdf[-1]), 128):
+            self.fast_max_dense *= 2
+            profiling.count("budget_doublings")
+        return out
+
+    def _take_hints(self, ph, cdf, R: int):
+        """The next frames' device order and hints from a frame's exact
+        packed hints ``ph``, and budgets matched to their class CDF
+        ``cdf`` (on the host): a parked camera's steady state."""
+        self._ray_order = accel.order_from_packed_device(ph)
+        self._hints_packed = ph
+        self._last_cdf = cdf
+        self._segments = list(accel.segments_from_hint_cdf(cdf, R))
+        self._segments_src = ("steady",)
+        self._segments_motion = None         # re-derived per episode
+        self._order_back = np.asarray(
+            self.camera.transform, np.float32)[:3, :].copy()
 
     def _hint_frame(self, need_votes: bool, skip_table, R: int):
         """The frame at one budget for all rays, doubled from
@@ -728,18 +790,10 @@ class Viewer:
         steps, nrec, skips = out[2], out[-2], out[-1]
         if self.use_device_order:
             ph = accel.pack_hints(steps, nrec, skips)
-            self._ray_order = accel.order_from_packed_device(ph)
-            self._hints_packed = ph
-            # exact hints of a parked camera: CDF-matched budgets
             cdf = accel.hint_class_cdf(nrec)
             with profiling.host_sync("hint_cdf"):
-                self._last_cdf = cdf.cpu().numpy()
-            self._segments = list(accel.segments_from_hint_cdf(
-                self._last_cdf, R))
-            self._segments_src = ("steady",)
-            self._segments_motion = None     # re-derived per episode
-            self._order_back = np.asarray(
-                self.camera.transform, np.float32)[:3, :].copy()
+                cdf = cdf.cpu().numpy()
+            self._take_hints(ph, cdf, R)
         else:
             # the host path (viewer.py:779-780): the hints fetched, the
             # order sorted on the host and uploaded

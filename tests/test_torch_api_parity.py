@@ -37,9 +37,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPKG, PPKG = J.__name__, P.__name__
 
 # trailing parameters the port adds after JAX's: the torch device, the
-# draws that replace JAX's threefry keys, the async flags' copy, and the
-# mesh (with the axis its shares split over) that JAX's shard_map implies
-PORT_ONLY = {"device", "generator", "rnd", "on_flags", "mesh", "axis"}
+# draws that replace JAX's threefry keys, the async flags' copy, the sync
+# redo's repair of the queued frame, and the mesh (with the axis its shares
+# split over) that JAX's shard_map implies
+PORT_ONLY = {"device", "generator", "rnd", "on_flags", "return_repair",
+             "mesh", "axis"}
 
 # qualified names (relative to the package) that deliberately differ:
 # JAX machinery with no torch meaning
