@@ -1,12 +1,15 @@
 """The system under test, built for one cell from its configuration and
-its traffic mix: the port's ``Viewer`` on the scene's tree.
+its traffic mix: the port's ``Viewer`` on the scene's tree, with the
+configuration's model where it names one.
 
 Only the port's public API is used: ``N3Tree.open``, ``Camera``,
-``RenderOptions`` and ``Viewer``.
+``RenderOptions`` and ``Viewer`` (its ``model``); the model itself is
+built by ``models/<arch>.py`` (``registry.model_module``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import os
@@ -15,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from . import scenes
+from . import registry, scenes
 
 
 def cache_dir(root: str) -> str:
@@ -28,6 +31,19 @@ def render_options(cfg: dict) -> dict:
     """The render options the configuration states, as plain values: the
     program's ``RenderOptions`` and the reference read the same."""
     return dict(cfg["render_options"])
+
+
+def program_options(options_cls, cfg: dict):
+    """The program's ``options_cls`` (``RenderOptions``) with every key of
+    the configuration's ``render_options`` passed by name; a list becomes
+    a tuple.  A key the class has no field of is an error."""
+    opts = render_options(cfg)
+    names = {f.name for f in dataclasses.fields(options_cls)}
+    unknown = sorted(set(opts) - names)
+    if unknown:
+        raise ValueError(f"render_options has no field {unknown}")
+    return options_cls(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in opts.items()})
 
 
 def camera_dict(cam) -> dict:
@@ -57,7 +73,7 @@ class Program:
     """The Viewer of one cell, and what was spent setting it up."""
 
     def __init__(self, root: str, cfg: dict, mix: dict, device,
-                 start_deg: float):
+                 start_deg: float, base: str = registry.HERE):
         import mega_nerf_viewer_tpu_torch as P
 
         self.device = torch.device(device)
@@ -75,14 +91,15 @@ class Program:
         self.base_pose = (np.asarray(mix["start_center"], np.float32),
                           cam.v_back.copy())
         set_azimuth(cam, self.base_pose, start_deg)
-        opts = render_options(cfg)
-        opt = P.RenderOptions(
-            step_size=opts["step_size"], sigma_thresh=opts["sigma_thresh"],
-            stop_thresh=opts["stop_thresh"],
-            background_brightness=opts["background_brightness"],
-            render_bbox=tuple(opts["render_bbox"]),
-            basis_minmax=tuple(opts["basis_minmax"]))
-        v = P.Viewer(tree, camera=cam, options=opt, device=self.device)
+        opt = program_options(P.RenderOptions, cfg)
+        model = None
+        if "model" in cfg:
+            spec = cfg["model"]
+            model = registry.model_module(spec["arch"], base).build(
+                spec, self.device)
+            marks.append(("model", time.perf_counter()))
+        v = P.Viewer(tree, camera=cam, options=opt, model=model,
+                     device=self.device)
         marks.append(("viewer", time.perf_counter()))
         # seconds of each set-up step, for the log
         self.setup_steps = [(n, t - p) for (_, p), (n, t)

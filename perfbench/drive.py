@@ -59,6 +59,7 @@ class Window:
         self.seconds = 0.0
         self.latencies = []
         self.starts = []        # host start of each timed unit
+        self.apart = []         # host seconds of frames timed apart
         self.kept = []          # (index, frame tensor, camera dict)
 
     def keep_last(self, img, cam: dict) -> None:

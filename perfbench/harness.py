@@ -10,10 +10,12 @@ The order matters for what each number means:
 2. the window, driven by the mix's kind (``traffic/<kind>.py``), with
    ``--trace 1`` under the spans, counters and the profiler of
    ``trace.py``;
-3. the check frames: the Viewer once more at the seed's check views;
+3. the check frames: the Viewer once more at the seed's check views
+   (the kind's own ``check_frames`` where it has one);
 4. ``memory_peak_bytes`` read, the program's state freed;
-5. the reference, from the scene file alone, at each kept frame's
-   camera, and the comparison (``check.py``).
+5. the reference, from the scene file (and a guided frame's model, from
+   its configuration) alone, at each kept frame's camera and of its kind,
+   and the comparison (``check.py``).
 """
 
 from __future__ import annotations
@@ -47,19 +49,31 @@ def reference_options(cfg: dict, basis_dim: int) -> dict:
 
 
 def reference_frames(cfg: dict, scene_path: str, kept, device,
-                     shade_dtype=torch.float32) -> list:
+                     shade_dtype=torch.float32,
+                     base: str = registry.HERE) -> list:
     """The reference's frame at each kept frame's camera, from the scene
-    file alone (one frame per distinct camera)."""
+    file alone (one frame per distinct camera and kind).  A kept frame's
+    camera dict names its kind under ``frame`` (``voxel`` when it names
+    none), and ``reference/<frame>.py`` renders it; the configuration's
+    model, where it has one, reaches it as its ``models/<arch>.py``'s
+    plain forward beside the model's block."""
     host = scenes.load_svox(scene_path)
     tree = ref.Tree(host, device)
     opt = reference_options(cfg, tree.basis_dim)
+    model = None
+    if "model" in cfg:
+        spec = cfg["model"]
+        model = (spec, registry.model_module(spec["arch"], base).reference(
+            spec, device))
     out, memo = [], {}
     for _, _, cam in kept:
-        key = cam["transform"].tobytes()
+        kind = cam.get("frame", "voxel")
+        key = (kind, cam["transform"].tobytes())
         if key not in memo:
+            frame = registry.frame_reference(kind, base)
             with torch.no_grad():
-                memo[key] = ref.voxel_frame(tree, cam, opt,
-                                            shade_dtype=shade_dtype)
+                memo[key] = frame(tree, cam, opt, shade_dtype=shade_dtype,
+                                  model=model)
         out.append(memo[key])
     return out
 
@@ -87,26 +101,29 @@ def power_limit() -> str:
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: float = None, root: str = None,
              cfg: dict = None, mix: dict = None, limits: dict = None,
-             control: bool = False, log=print) -> tuple:
+             control: bool = False, log=print,
+             base: str = registry.HERE) -> tuple:
     """Run one cell once.  Returns (result dict, list of check lines).
     ``cfg``, ``mix`` and ``limits`` replace the cell's files (the tests'
-    tiny sizes on the CPU); the command line never passes them.  With
-    ``control`` the result also carries ``control``: the numbers the
-    comparison gives the reference in the nearest lower precision (its
-    colour arithmetic in bfloat16), put in the program's place."""
+    tiny sizes on the CPU), and ``base`` stands in for ``perfbench/``
+    where the cell's parts are found (``registry``); the command line
+    passes none of them.  With ``control`` the result also carries
+    ``control``: the numbers the comparison gives the reference in the
+    nearest lower precision (its colour arithmetic, and a model's forward,
+    in bfloat16), put in the program's place."""
     t_start = time.perf_counter() if t_start is None else t_start
     root = root or registry.ROOT
     bench = registry.benchmark(root)
     wl = registry.workload(bench, workload)
-    cfg = cfg or registry.config(wl["config"])
-    mix = mix or registry.traffic(wl["traffic"])
-    limits = limits or registry.check(workload)
+    cfg = cfg or registry.config(wl["config"], base)
+    mix = mix or registry.traffic(wl["traffic"], base)
+    limits = limits or registry.check(workload, base)
     device = torch.device(device)
     plan = drive.Plan(mix, seed)
-    kind = registry.kind_driver(mix["kind"])
+    kind = registry.kind_driver(mix["kind"], base)
 
     t_program = time.perf_counter()
-    prog = cell.Program(root, cfg, mix, device, plan.start_deg)
+    prog = cell.Program(root, cfg, mix, device, plan.start_deg, base)
     if prog.scene_build_s:
         # a checkout's first run: the check records its set-up apart
         log(f"# scene built in {prog.scene_build_s:.1f} s (inside "
@@ -127,15 +144,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         with inst.installed(v):
             win = kind.run(v, mix, plan, seconds, device, prog.base_pose)
     window_kept = len(win.kept)
-    win.kept += drive.check_frames(v, mix, plan, prog.base_pose, win.units)
+    check_frames = getattr(kind, "check_frames", drive.check_frames)
+    win.kept += check_frames(v, mix, plan, prog.base_pose, win.units)
     drive.sync(device)
     dev_info = device_block(device, int(wl["chips"]))
     totals = timeline = None
-    spans, counts, span_log = {}, {}, []
+    spans, counts, span_log, device_ops_s = {}, {}, [], {}
     if inst is not None:
         totals = inst.totals()
         timeline = inst.timeline()
         totals.update({f"{k}_s": v for k, v in inst.kernel_s.items()})
+        device_ops_s = dict(inst.device_ops_s)
         spans, counts, span_log = dict(inst.spans), dict(inst.counts), \
             inst.log
         inst = None             # its wraps hold the Viewer
@@ -148,23 +167,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     del v
     prog.free()
     t_ref = time.perf_counter()
-    refs = reference_frames(cfg, scene_path, win.kept, device)
+    refs = reference_frames(cfg, scene_path, win.kept, device, base=base)
     verdict = check.judge([(k[1], r) for k, r in zip(win.kept, refs)],
                           limits, shares=control)
     ref_s = time.perf_counter() - t_ref
     ctl = None
     if control:
         low = reference_frames(cfg, scene_path, win.kept, device,
-                               shade_dtype=torch.bfloat16)
+                               shade_dtype=torch.bfloat16, base=base)
         ctl = check.judge(list(zip(low, refs)), limits, shares=True)
     correct = bool(win.kept) and check.passed(verdict["numbers"])
 
     ctx = SimpleNamespace(window=win, setup_s=setup_s, mix=mix, cfg=cfg,
                           spans=spans, counts=counts,
-                          totals=totals or {}, timeline=timeline)
+                          totals=totals or {}, timeline=timeline,
+                          device_ops_s=device_ops_s)
     metrics = {}
     for m in registry.cell_metrics(bench, wl, trace):
-        val = registry.metric_reader(m["name"])(ctx)
+        val = registry.metric_reader(m["name"], base)(ctx)
         if val is not None:
             metrics[m["name"]] = {"value": val, "unit": m["unit"]}
     lat = win.latencies
@@ -187,6 +207,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             parts = [f"{n} {1e3 * d:.2f}" for n, t, d in span_log
                      if t0 <= t <= t1]
             log(f"#   unit {i}: " + "; ".join(parts))
+    if win.apart:
+        # frames the kind times apart from its units (a stop's drag poses)
+        q = np.percentile(np.asarray(win.apart) * 1e3, (50, 90, 99))
+        log(f"# {len(win.apart)} frames timed apart, ms at p50, p90, p99: "
+            + ", ".join(f"{x:.3f}" for x in q))
     if trace:
         log(f"# trace totals {totals}; counts {counts}")
     result = {"correct": correct, "attempted": win.units,

@@ -1,7 +1,8 @@
 """redo_ms.<mix>: the mean host ms of the program's ``viewer.redo`` spans,
-from an overflow's detection to the redo frame's new order: the
-escalation loop's frames, their reads of the overflow count,
-``block_permutation`` and the hints.  0 when the window redid no frame."""
+from an overflow's detection to the redo frame's new order: the repair
+(the overflowed segments re-marched in place in the frame already
+queued), its ``sync.hint_cdf`` read and the new order; a whole hint frame
+only where the repair falls back.  0 when the window redid no frame."""
 
 from perfbench import program_spans
 

@@ -14,10 +14,17 @@ metric; each part lives in a file of its own under ``perfbench/``:
   shares the reader of its first part, ``metrics/idle_share.py``, unless
   a file of its whole name is there;
 * ``checks/<workload>.json``: the numbers the output comparison holds the
-  cell's frames to, with their limits.
+  cell's frames to, with their limits;
+* ``models/<arch>.py``: the model a configuration's ``model`` block names
+  by its ``arch``: ``build(spec, device)`` gives the port's model, and
+  ``reference(spec, device)`` the plain forward the reference runs;
+* ``reference/<frame>.py``: the plain reference of one kind of kept frame
+  (``voxel``, ``guided``), a function ``frame(tree, cam, opt, ...)``.
 
-A later cell, mix, configuration or metric is added as files and
-entries; no file here names one.
+A later cell, mix, configuration, model or metric is added as files and
+entries; no file here names one.  Each function takes a ``base`` folder
+that stands in for ``perfbench/`` (the tests' fixtures); a part that is
+not there is taken from ``perfbench/``.
 """
 
 from __future__ import annotations
@@ -46,16 +53,24 @@ def workload(bench: dict, name: str) -> dict:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
+def _find(base: str, sub: str, fname: str) -> str:
+    """``<base>/<sub>/<fname>``, else ``perfbench/<sub>/<fname>``."""
+    path = os.path.join(base, sub, fname)
+    if os.path.exists(path):
+        return path
+    return os.path.join(HERE, sub, fname)
+
+
 def config(name: str, base: str = HERE) -> dict:
-    return _json(os.path.join(base, "configs", f"{name}.json"))
+    return _json(_find(base, "configs", f"{name}.json"))
 
 
 def traffic(name: str, base: str = HERE) -> dict:
-    return _json(os.path.join(base, "traffic", f"{name}.json"))
+    return _json(_find(base, "traffic", f"{name}.json"))
 
 
 def check(name: str, base: str = HERE) -> dict:
-    return _json(os.path.join(base, "checks", f"{name}.json"))
+    return _json(_find(base, "checks", f"{name}.json"))
 
 
 def _module(path: str, prefix: str):
@@ -69,16 +84,27 @@ def _module(path: str, prefix: str):
 
 def kind_driver(kind: str, base: str = HERE):
     """The driver module of a mix kind, ``traffic/<kind>.py``."""
-    return _module(os.path.join(base, "traffic", f"{kind}.py"),
-                   "perfbench_kind_")
+    return _module(_find(base, "traffic", f"{kind}.py"), "perfbench_kind_")
+
+
+def model_module(arch: str, base: str = HERE):
+    """The module of a configuration's model, ``models/<arch>.py``."""
+    return _module(_find(base, "models", f"{arch}.py"), "perfbench_model_")
+
+
+def frame_reference(frame: str, base: str = HERE):
+    """The ``frame`` function of ``reference/<frame>.py``: the plain
+    reference of one kind of kept frame."""
+    return _module(_find(base, "reference", f"{frame}.py"),
+                   "perfbench_frame_").frame
 
 
 def metric_reader(name: str, base: str = HERE):
     """The ``read`` function of ``metrics/<name>.py``, else of
     ``metrics/<first part of name>.py``."""
-    path = os.path.join(base, "metrics", f"{name}.py")
+    path = _find(base, "metrics", f"{name}.py")
     if not os.path.exists(path):
-        path = os.path.join(base, "metrics", name.split(".", 1)[0] + ".py")
+        path = _find(base, "metrics", name.split(".", 1)[0] + ".py")
     return _module(path, "perfbench_metric_").read
 
 

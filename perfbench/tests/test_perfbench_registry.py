@@ -8,8 +8,13 @@ from perfbench import registry
 
 
 def test_new_parts_are_found_by_name(tmp_path):
-    for sub in ("configs", "traffic", "metrics", "checks"):
+    for sub in ("configs", "traffic", "metrics", "checks", "models",
+                "reference"):
         os.makedirs(tmp_path / sub)
+    (tmp_path / "models" / "new_arch.py").write_text(
+        "def build(spec, device):\n    return spec['w']\n")
+    (tmp_path / "reference" / "new_frame.py").write_text(
+        "def frame(*a, **kw):\n    return 'framed'\n")
     (tmp_path / "traffic" / "new_kind.py").write_text(
         "def run(*a):\n    return 'ran'\n")
     (tmp_path / "configs" / "new_cfg.json").write_text(
@@ -31,6 +36,14 @@ def test_new_parts_are_found_by_name(tmp_path):
     assert registry.metric_reader("shared.parked", base)(1) == 2
     assert registry.metric_reader("shared.orbit", base)(2) == 3
     assert registry.kind_driver("new_kind", base).run() == "ran"
+    assert registry.model_module("new_arch", base).build({"w": 3}, None) == 3
+    assert registry.frame_reference("new_frame", base)() == "framed"
+    # a part the base folder lacks is perfbench's own
+    assert registry.kind_driver("guided", base).check_frames
+    assert registry.frame_reference("voxel", base).__module__.endswith(
+        "voxel")
+    assert registry.config("aerial_d11_sh4", base)["name"] == \
+        "aerial_d11_sh4"
 
 
 def test_every_named_part_has_its_file():
@@ -59,6 +72,13 @@ def test_cell_metrics_follow_their_workloads():
     assert got["syn512_parked"][0] == ["frame_ms", "setup_s"]
     assert set(got["syn512_orbit"][1]) == {
         "viewer_host_ms.orbit", "rebuilds_per_pose.orbit",
-        "idle_share.orbit"}
+        "idle_share.orbit", "enqueue_ms.orbit", "sync_wait_ms.orbit",
+        "syncs_per_frame.orbit", "redos_per_pose.orbit", "redo_ms.orbit"}
     assert set(got["syn512_parked"][1]) == set(got["d11_parked"][1]) == {
-        "viewer_host_ms.parked", "march_roofline.parked", "idle_share.parked"}
+        "viewer_host_ms.parked", "march_roofline.parked", "idle_share.parked",
+        "enqueue_ms.parked", "sync_wait_ms.parked", "syncs_per_frame.parked"}
+    # stop_ms waits for a guided cell, which brings its entry: no cell
+    # reports it yet, and its reader is found by name
+    assert "stop_ms" not in [m["name"] for m in bench["end_to_end"]]
+    assert all("stop_ms" not in e2e for e2e, _ in got.values())
+    assert callable(registry.metric_reader("stop_ms"))

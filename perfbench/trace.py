@@ -17,9 +17,11 @@ Counters: the calls of ``order_from_hints``, ``order_from_hints_device``,
 
 Kernel timings: kernel A's device time from the profiler's records of
 ``mnv::march_kernel`` (on a host-paced frame CUDA events around a launch
-would also time the host's launch overhead).  Kernel A's launches, rays,
-steps and shaded samples are counted (the sums on the device, read once
-after the window).
+would also time the host's launch overhead), and every device
+operation's seconds in the window by its name (``device_ops_s``), which
+the metric readers get as ``ctx.device_ops_s``.  Kernel A's launches,
+rays, steps and shaded samples are counted (the sums on the device, read
+once after the window).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ class Instruments:
         self._acc = None
         self.prof = None
         self.kernel_s = {}
+        self.device_ops_s = {}
 
     # ------------------------------------------------------------------
     def _span(self, name, fn):
@@ -231,6 +234,7 @@ class Instruments:
                     label = h[2]
                     break
             idle[label] += (g1 - g0) / 1e9
+        self.device_ops_s = dict(by_name)
         self.kernel_s = {key: sum(v for n, v in by_name.items()
                                   if n.startswith(prefix))
                          for key, prefix in KERNELS.items()}
