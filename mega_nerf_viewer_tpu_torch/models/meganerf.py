@@ -3,12 +3,12 @@
 Counterpart of ``mega_nerf_viewer_tpu/models/meganerf.py``; analogue of
 the reference's LibTorch model layer (``src/renderer/cuda_renderer.cpp:
 518-543`` load_model, ``:165-203`` query_submodules).  The reference keeps
-a TorchScript module per spatial cluster; here the submodules' Linear
-stacks are converted once into stacked weights with one leading cluster
-axis (:class:`MLPParams`) and inference is batched matrix products.
-The products are plain PyTorch (``torch.bmm``), as the JAX package leaves
-them to XLA outside any Pallas kernel; they run in full f32 (TF32 off,
-see :func:`_f32_matmul`) because the reference is f32.
+a TorchScript module per spatial cluster; here the submodules' weights
+are converted once into stacked weights with one leading cluster axis and
+inference is batched matrix products.  The products are plain PyTorch
+(``torch.bmm``), as the JAX package leaves them to XLA outside any Pallas
+kernel; they run in full f32 (TF32 off, see :func:`_f32_matmul`) because
+the reference is f32.
 
 Container contract (reference ``cuda_renderer.cpp:518-543``):
   * attrs ``grid_dim`` (int[2]), ``min_position`` / ``max_position``
@@ -18,14 +18,37 @@ Container contract (reference ``cuda_renderer.cpp:518-543``):
     [xyz, (viewdir), (appearance)], second arg ``False``; output
     ``[n, data_dim + 1]``.
 
+Submodule structures that convert (each verified by replaying its forward
+within 1e-4 on seeded rows):
+  * a Linear/ReLU stack, its input re-injected after the hidden state at
+    any layer whose input width exceeds the running width by the input's
+    (``cat[h, x]``): :class:`MLPParams`;
+  * Mega-NeRF's ``NeRF`` (``mega_nerf/models/nerf.py``) with an SH head
+    and an appearance embedding and no direction encoding (``pos_dir_dim``
+    0, ``appearance_dim`` > 0, ``affine_appearance`` off), recognised by
+    its parameter names (``xyz_encodings.<i>.0``, ``sigma``,
+    ``xyz_encoding_final``, ``embedding_a``, ``dir_a_encoding.0``,
+    ``rgb``) and the encoding's ``freq_bands``, with a ReLU or shifted
+    softplus sigma activation: :class:`NeRFParams`.  Its input is
+    ``[xyz, appearance id]``.
+
+Both kinds run through :func:`query_grouped`.  A ``NeRF`` with a
+direction encoding, an affine appearance or no appearance embedding, and
+any other graph, falls back to eager TorchScript (``meganerf.py:434-456``):
+its frozen submodules run on the model's device through
+:meth:`MegaNeRFModel.query`, the cluster-sorted loop of the reference's
+``query_submodules``, and guided sampling takes the host reconstruction
+path (``ops/guided.py``).
+
 Cluster id for a point is a 2-D cell over (y, z):
 ``g1 * grid_dim[1] + g2`` (reference ``rt_core.cuh:541-549``).
 
-A container whose graph does not convert falls back to eager TorchScript
-(``meganerf.py:434-456``): its frozen submodules run on the model's device
-through :meth:`MegaNeRFModel.query`, the cluster-sorted loop of the
-reference's ``query_submodules``, and guided sampling takes the host
-reconstruction path (``ops/guided.py``).
+The query records the span ``model.query`` (``route`` ``chunked`` or
+``all``, ``rows`` the rows handed in) and the counters ``mlp_queries``
+and ``mlp_rows`` (rows the forward computed, pad rows included) while a
+profiler session runs (``utils/profiling.py``); ``mlp_samples`` (real
+samples) is counted where they are known: :meth:`MegaNeRFModel.query_device`
+and the guided fast path.
 """
 
 from __future__ import annotations
@@ -38,10 +61,15 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils import profiling
 
 # batches at or above this size take the chunked route (meganerf.py:236)
 CHUNKED_MIN = 1 << 16
 CHUNK = 1 << 13
+# the chunked forward runs at most this many rows at a time (whole chunks),
+# so that its activations stay bounded: about 4.5 KB a row at Mill 19's
+# widths, 9.3 GB a block
+BLOCK_ROWS = 1 << 21
 
 
 class MLPParams(nn.Module):
@@ -110,6 +138,175 @@ def _f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+class NeRFParams(nn.Module):
+    """Stacked per-cluster weights of Mega-NeRF's ``NeRF``
+    (``mega_nerf/models/nerf.py``) with an SH head, an appearance
+    embedding and no direction encoding.
+
+    For an input row ``[p (3), appearance id]``: ``g = [p, sin(f_0 p),
+    cos(f_0 p), ...]`` over ``freq_bands`` (the encoding, ``3 + 6F``
+    wide); ``h = g``, then for each trunk layer ``l``: ``h = cat[g, h]``
+    where ``l`` is in ``skips`` (the encoding first), ``h = ReLU(h W_l +
+    b_l)``; ``sigma = act(h W_s + b_s)``; ``f = h W_f + b_f``; ``a`` the
+    cluster's appearance row of the id; ``c = ReLU(cat[f, a] W_g + b_g)
+    W_c + b_c``; the output ``cat[c, sigma]``.
+
+    Buffers: ``freq_bands`` f32 [F]; the trunk ``w<l>`` [C, in, out],
+    ``b<l>`` [C, out]; ``sigma_w``, ``final_w``, ``dir_a_w``, ``rgb_w``
+    [C, in, out] with their ``*_b`` [C, out]; ``appearance`` [C, A, E].
+    ``sigma_activation``: ``relu`` or ``softplus`` (Mega-NeRF's shifted
+    softplus, ``softplus(x - 1)``)."""
+
+    HEADS = ("sigma", "final", "dir_a", "rgb")
+
+    def __init__(self, freq_bands: torch.Tensor, trunk_w, trunk_b, skips,
+                 heads: dict, appearance: torch.Tensor,
+                 sigma_activation: str = "relu"):
+        super().__init__()
+        if sigma_activation not in ("relu", "softplus"):
+            raise ValueError(f"sigma_activation {sigma_activation!r}")
+        f32 = torch.float32
+        self.register_buffer("freq_bands", freq_bands.to(f32).contiguous())
+        self.n_layers = len(trunk_w)
+        for l, (w, b) in enumerate(zip(trunk_w, trunk_b)):
+            self.register_buffer(f"w{l}", w.to(f32).contiguous())
+            self.register_buffer(f"b{l}", b.to(f32).contiguous())
+        for k in self.HEADS:
+            w, b = heads[k]
+            self.register_buffer(f"{k}_w", w.to(f32).contiguous())
+            self.register_buffer(f"{k}_b", b.to(f32).contiguous())
+        self.register_buffer("appearance", appearance.to(f32).contiguous())
+        self.skips = tuple(int(s) for s in skips)
+        self.sigma_activation = sigma_activation
+
+    @property
+    def n_clusters(self) -> int:
+        return self.w0.shape[0]
+
+    @property
+    def output_dim(self) -> int:
+        return self.rgb_w.shape[2] + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.w0.device
+
+    def trunk(self, l: int) -> tuple:
+        """(weight, bias) of trunk layer ``l``."""
+        return getattr(self, f"w{l}"), getattr(self, f"b{l}")
+
+    def head(self, k: str) -> tuple:
+        """(weight, bias) of the head ``k`` of :attr:`HEADS`."""
+        return getattr(self, f"{k}_w"), getattr(self, f"{k}_b")
+
+
+def nerf_params_from_numpy(arrays: dict, skips, sigma_activation="relu",
+                           device=None) -> NeRFParams:
+    """:class:`NeRFParams` from host arrays: ``freq_bands`` [F],
+    ``trunk_w`` / ``trunk_b`` (lists, [C, in, out] / [C, out]),
+    ``<head>_w`` / ``<head>_b`` for ``sigma``, ``final``, ``dir_a`` and
+    ``rgb``, and ``appearance`` [C, A, E]."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return NeRFParams(
+        t(arrays["freq_bands"]), [t(w) for w in arrays["trunk_w"]],
+        [t(b) for b in arrays["trunk_b"]], skips,
+        {k: (t(arrays[f"{k}_w"]), t(arrays[f"{k}_b"]))
+         for k in NeRFParams.HEADS},
+        t(arrays["appearance"]), sigma_activation)
+
+
+def encode_positions(p: torch.Tensor, freq_bands: torch.Tensor
+                     ) -> torch.Tensor:
+    """Mega-NeRF's ``Embedding``: ``[p, sin(f_0 p), cos(f_0 p), sin(f_1
+    p), ...]`` along the last axis."""
+    fp = p[..., None, :] * freq_bands[:, None]
+    sc = torch.stack([torch.sin(fp), torch.cos(fp)], -2)
+    return torch.cat([p, sc.reshape(*p.shape[:-1], -1)], -1)
+
+
+def _nerf_forward(params: NeRFParams, x: torch.Tensor, pick,
+                  groups: int) -> torch.Tensor:
+    """:class:`NeRFParams`' forward on ``groups`` groups of rows, each
+    group one cluster's.  ``x`` f32 [G or 1, n, 4] (a leading 1 is shared
+    by every group); ``pick(t)`` gives the groups' slice [G, ...] of a
+    stacked [C, ...] buffer.  Returns f32 [G, n, out]."""
+    g = encode_positions(x[..., :3], params.freq_bands)
+    g = g.expand(groups, -1, -1)
+
+    def linear(h, wb):
+        return torch.baddbmm(pick(wb[1])[:, None, :], h, pick(wb[0]))
+
+    with _f32_matmul():
+        h = g
+        for l in range(params.n_layers):
+            if l in params.skips:
+                h = torch.cat([g, h], -1)
+            h = linear(h, params.trunk(l)).relu_()
+        sigma = linear(h, params.head("sigma"))
+        sigma = torch.relu(sigma) if params.sigma_activation == "relu" \
+            else torch.nn.functional.softplus(sigma - 1.0)
+        f = linear(h, params.head("final"))
+        table = pick(params.appearance)
+        ids = x[..., 3].long().clamp(0, table.shape[1] - 1)
+        a = torch.gather(table, 1, ids.expand(groups, -1)[..., None]
+                         .expand(-1, -1, table.shape[2]))
+        c = linear(linear(torch.cat([f, a], -1),
+                          params.head("dir_a")).relu_(), params.head("rgb"))
+    return torch.cat([c, sigma], -1)
+
+
+def _forward_one(params, cluster: int, x: torch.Tensor) -> torch.Tensor:
+    """One cluster's forward on ``x`` [n, in], either parameter kind."""
+    if isinstance(params, NeRFParams):
+        return _nerf_forward(params, x[None], lambda t: t[cluster:cluster + 1],
+                             1)[0]
+    return mlp_forward(params, cluster, x)
+
+
+def _forward_all(params, cluster_ids: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Every cluster on every sample, then the select (either kind)."""
+    if not isinstance(params, NeRFParams):
+        return mlp_forward_all(params, cluster_ids, x)
+    h = _nerf_forward(params, x[None], lambda t: t, params.n_clusters)
+    return h[cluster_ids.long(), torch.arange(x.shape[0], device=x.device)]
+
+
+def _forward_block(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    """The cluster-pure chunked forward of one block (either kind); see
+    :func:`mlp_forward_chunked`."""
+    if not isinstance(params, NeRFParams):
+        return mlp_forward_chunked(params, x_al, chunk_cids, chunk)
+    nb = x_al.shape[0] // chunk
+    cids = chunk_cids.long()
+    h = _nerf_forward(params, x_al.reshape(nb, chunk, x_al.shape[-1]),
+                      lambda t: t[cids], nb)
+    return h.reshape(nb * chunk, -1)
+
+
+def _forward_chunked(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """The cluster-pure chunked forward in blocks of at most
+    :data:`BLOCK_ROWS` rows, written into one output."""
+    nb = x_al.shape[0] // chunk
+    per = max(1, BLOCK_ROWS // chunk)
+    out = None
+    for b0 in range(0, nb, per):
+        b1 = min(nb, b0 + per)
+        h = _forward_block(params, x_al[b0 * chunk:b1 * chunk],
+                           chunk_cids[b0:b1], chunk)
+        if out is None:
+            if b1 == nb:
+                return h
+            out = h.new_empty((nb * chunk, h.shape[1]))
+        out[b0 * chunk:b1 * chunk] = h
+    return out
 
 
 def mlp_forward(params: MLPParams, cluster: int,
@@ -244,7 +441,8 @@ def _query_chunked(params: MLPParams, cluster_ids: torch.Tensor,
     k = seg_start[c_s] + torch.minimum(off, (counts[c_s] - 1).clamp_min(0))
     x_al = sorted_x[k.clamp(0, n - 1)]
     chunk_cids = c_s.reshape(-1, chunk)[:, 0]
-    out_al = mlp_forward_chunked(params, x_al, chunk_cids, chunk)
+    profiling.count("mlp_rows", P_al)
+    out_al = _forward_chunked(params, x_al, chunk_cids, chunk)
     # aligned slot of sorted rank r, written back to the caller's order
     r = torch.arange(n, device=dev)
     c_r = (torch.searchsorted(seg_start, r, right=True) - 1).clamp(0, C - 1)
@@ -254,14 +452,22 @@ def _query_chunked(params: MLPParams, cluster_ids: torch.Tensor,
     return out
 
 
-def query_grouped(params: MLPParams, cluster_ids: torch.Tensor,
+def query_grouped(params, cluster_ids: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
     """Shape-adaptive grouped dispatch: the chunked route for 2^16 samples
-    or more, the all-clusters select below (``meganerf.py:231-240``)."""
-    if x.shape[0] >= CHUNKED_MIN:
-        return _query_chunked(params, cluster_ids, x, CHUNK)
-    ids = cluster_ids.long().clamp(0, params.n_clusters - 1)
-    return mlp_forward_all(params, ids, x)
+    or more, the all-clusters select below (``meganerf.py:231-240``).
+    ``params`` is either kind (:class:`MLPParams`, :class:`NeRFParams`).
+    The span ``model.query`` and the counters ``mlp_queries`` and
+    ``mlp_rows`` come from shapes the host holds."""
+    n = x.shape[0]
+    route = "chunked" if n >= CHUNKED_MIN else "all"
+    with profiling.annotate("model.query", route=route, rows=n):
+        profiling.count("mlp_queries")
+        if route == "chunked":
+            return _query_chunked(params, cluster_ids, x, CHUNK)
+        profiling.count("mlp_rows", params.n_clusters * n)
+        ids = cluster_ids.long().clamp(0, params.n_clusters - 1)
+        return _forward_all(params, ids, x)
 
 
 def cluster_ids_from_yz(y, z, grid_dim, min_position, pos_range):
@@ -323,6 +529,7 @@ class MegaNeRFModel:
         if self._torch_modules is not None:
             return self.query(cluster_ids, samples)
         dev = self.device
+        profiling.count("mlp_samples", int(samples.shape[0]))
         return query_grouped(
             self.params, torch.as_tensor(cluster_ids, device=dev).reshape(-1),
             torch.as_tensor(samples, dtype=torch.float32, device=dev))
@@ -350,7 +557,7 @@ class MegaNeRFModel:
         if self._torch_modules is not None:
             with torch.inference_mode():
                 return self._torch_modules[cluster](x, False).float()
-        return mlp_forward(self.params, cluster, x)
+        return _forward_one(self.params, cluster, x)
 
     def query(self, cluster_ids, samples, nerf_batch_size: int = 1024,
               batch_mult: int = 1) -> torch.Tensor:
@@ -459,6 +666,17 @@ def model_from_numpy(weights, biases, skips, grid_dim, min_position,
                          need_viewdir, need_appearance_embedding)
 
 
+def nerf_model_from_numpy(arrays: dict, skips, grid_dim, min_position,
+                          max_position, sigma_activation: str = "relu",
+                          device=None) -> MegaNeRFModel:
+    """A whole :class:`MegaNeRFModel` of Mega-NeRF ``NeRF`` submodules from
+    host arrays (:func:`nerf_params_from_numpy`) and the container's grid;
+    its input is ``[xyz, appearance id]`` (no view direction)."""
+    return MegaNeRFModel(
+        nerf_params_from_numpy(arrays, skips, sigma_activation, device),
+        grid_dim, min_position, max_position, False, True)
+
+
 def _probe_output_dim(module, in_dim: int) -> int:
     """The output width of a submodule from one forward of a zero row
     (``meganerf.py:440-449``): a fallback model's placeholder ``params``
@@ -483,12 +701,15 @@ def _dummy_params(n_clusters: int, in_dim: int, out_dim: int = 4,
         [torch.zeros((n_clusters, out_dim), device=device)])
 
 
-def _convert_modules(modules, in_dim: int,
-                     verify: bool = True) -> Optional[MLPParams]:
+def _convert_modules(modules, in_dim: int, verify: bool = True):
     """Extract the Linear stacks of TorchScript modules into
-    :class:`MLPParams` (``meganerf.py:459-532``), or None when they do
-    not convert.  A layer whose input width exceeds the running width by
-    exactly ``in_dim`` is a skip reinjection of the raw input."""
+    :class:`MLPParams` (``meganerf.py:459-532``), Mega-NeRF ``NeRF``
+    submodules into :class:`NeRFParams` (:func:`_convert_nerf`), or None
+    when they do not convert.  A layer whose input width exceeds the
+    running width by exactly ``in_dim`` is a skip reinjection of the raw
+    input."""
+    if _is_nerf(modules[0]):
+        return _convert_nerf(modules, in_dim, verify)
     all_layers = []
     skips_per_module = []
     for m in modules:
@@ -527,14 +748,100 @@ def _convert_modules(modules, in_dim: int,
             for ls in all_layers]).astype(np.float32))
     params = params_from_numpy(weights, biases, skips_per_module[0],
                                device="cpu")
-    if verify:
-        x = torch.from_numpy(
-            np.random.RandomState(0).randn(8, in_dim).astype(np.float32))
-        for c, m in enumerate(modules):
-            with torch.inference_mode():
-                want = m(x, False)
-            got = mlp_forward(params, c, x)
-            if want.shape != got.shape or not torch.allclose(
-                    want, got, rtol=1e-4, atol=1e-4):
-                return None
-    return params
+    x = torch.from_numpy(
+        np.random.RandomState(0).randn(8, in_dim).astype(np.float32))
+    return params if not verify or _replays(params, modules, x) else None
+
+
+def _replays(params, modules, x: torch.Tensor) -> bool:
+    """Whether each cluster's converted forward gives its module's output
+    on ``x`` within 1e-4."""
+    for c, m in enumerate(modules):
+        # no_grad, not inference_mode: a scripted graph that ran with
+        # autograd on may then refuse inference tensors
+        with torch.no_grad():
+            want = m(x, False)
+        got = _forward_one(params, c, x)
+        if want.shape != got.shape or not torch.allclose(
+                want, got, rtol=1e-4, atol=1e-4):
+            return False
+    return True
+
+
+# the parameters of a Mega-NeRF ``NeRF`` (``mega_nerf/models/nerf.py``)
+# with an SH head, an appearance embedding and no direction encoding
+_NERF_HEADS = {"sigma": "sigma", "final": "xyz_encoding_final",
+               "dir_a": "dir_a_encoding.0", "rgb": "rgb"}
+_NERF_ACTIVATIONS = {"ReLU": "relu", "ShiftedSoftplus": "softplus"}
+
+
+def _is_nerf(module) -> bool:
+    names = {n for n, _ in module.named_parameters()}
+    return "xyz_encodings.0.0.weight" in names and "embedding_a.weight" \
+        in names and all(f"{p}.weight" in names
+                         for p in _NERF_HEADS.values())
+
+
+def _convert_nerf(modules, in_dim: int,
+                  verify: bool = True) -> Optional[NeRFParams]:
+    """Mega-NeRF ``NeRF`` submodules into :class:`NeRFParams`, or None
+    when one has a part the port does not run (a direction encoding, an
+    affine appearance, another sigma activation), their shapes differ or
+    they do not replay.  A trunk layer whose input width exceeds the
+    layer width by the encoding's is a skip of the encoding."""
+    if in_dim != 4:
+        return None
+    per = []
+    for m in modules:
+        named = {n: p.detach().cpu().numpy()
+                 for n, p in m.named_parameters()}
+        act = getattr(getattr(m, "sigma_activation", None), "original_name",
+                      type(getattr(m, "sigma_activation", None)).__name__)
+        freqs = getattr(getattr(m, "embedding_xyz", None), "freq_bands",
+                        None)
+        if any(n.startswith("affine.") for n in named) \
+                or act not in _NERF_ACTIVATIONS or freqs is None:
+            return None
+        trunk = []
+        while f"xyz_encodings.{len(trunk)}.0.weight" in named:
+            k = f"xyz_encodings.{len(trunk)}.0."
+            trunk.append((named[k + "weight"], named[k + "bias"]))
+        heads = {k: (named[p + ".weight"], named[p + ".bias"])
+                 for k, p in _NERF_HEADS.items()}
+        per.append((np.asarray(torch.as_tensor(freqs), np.float32), trunk,
+                    heads, named["embedding_a.weight"],
+                    _NERF_ACTIVATIONS[act]))
+    freqs, trunk, heads, _, act = per[0]
+    enc = 3 + 6 * freqs.shape[0]
+    width = trunk[0][0].shape[0]
+    skips = []
+    for l, (w, _) in enumerate(trunk):
+        if l and w.shape == (width, width + enc):
+            skips.append(l)
+        elif w.shape != (width, enc if l == 0 else width):
+            return None
+    if heads["dir_a"][0].shape[1] != width + per[0][3].shape[1]:
+        return None             # a direction encoding in the colour branch
+    sig = [(f.tobytes(), [w.shape for w, _ in t],
+            {k: v[0].shape for k, v in h.items()}, e.shape, a)
+           for f, t, h, e, a in per]
+    if any(s_ != sig[0] for s_ in sig):
+        return None
+
+    def stack(get):
+        return np.stack([get(p) for p in per]).astype(np.float32)
+    arrays = {"freq_bands": freqs,
+              "trunk_w": [stack(lambda p, l=l: p[1][l][0].T)
+                          for l in range(len(trunk))],
+              "trunk_b": [stack(lambda p, l=l: p[1][l][1])
+                          for l in range(len(trunk))],
+              "appearance": stack(lambda p: p[3])}
+    for k in NeRFParams.HEADS:
+        arrays[f"{k}_w"] = stack(lambda p, k=k: p[2][k][0].T)
+        arrays[f"{k}_b"] = stack(lambda p, k=k: p[2][k][1])
+    params = nerf_params_from_numpy(arrays, skips, act, device="cpu")
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.randn(8, 3), rng.randint(
+        0, per[0][3].shape[0], (8, 1))], 1).astype(np.float32)
+    return params if not verify or _replays(
+        params, modules, torch.from_numpy(x)) else None

@@ -280,7 +280,6 @@ class Viewer:
         self._guided_seg_src = None
         self._guided_order = None
         self._guided_back = None
-        self._guided_budget_hint = None
         # initial record budget of the hint frame (escalates on overflow)
         self.fast_max_dense = 8
         self.fast_chunk_size = device_tuning(self.device).chunk_size
@@ -1134,11 +1133,7 @@ class Viewer:
         cache = guided.collect_and_query_fast(
             self.tree, self._leaf_map, self.model, cam, opt,
             chunk_size=self.fast_chunk_size, skip_table=skip_table,
-            order=g_order, segments=segs,
-            budget_hint=(self._guided_budget_hint
-                         if segs is not None else None))
-        if "budget_hint_next" in cache:
-            self._guided_budget_hint = cache["budget_hint_next"]
+            order=g_order, segments=segs)
         if segs is not None and "segments" in cache:
             # escalations settle here: the next invalidation starts from
             # the settled ladder

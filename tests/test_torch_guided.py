@@ -252,9 +252,9 @@ def test_ordered_collect_identical(scene, unordered):
 
 def test_segmented_collect_and_speculation(scene, unordered):
     """The segmented invalidation settles to the unordered records, from
-    fresh hints and from stale ones (escalation); a budget hint that fits
-    is used, one that does not is redone (``test_guided.py:323``,
-    ``:370``).  The class flags themselves are held against JAX in
+    fresh hints and from stale ones (escalation); the budget hint is
+    taken and not used, every query sized by its settled total
+    (``test_guided.py:323``, ``:370``).  The class flags themselves are held against JAX in
     ``test_torch_collect.py``."""
     s = scene
     _, p0 = unordered
@@ -283,9 +283,7 @@ def test_segmented_collect_and_speculation(scene, unordered):
             assert p["segments"] == segs       # fresh hints never escalate
         else:
             assert p["segments"] != sg
-        used_hint = hint is not None and hint >= total
-        assert p["results_c"].shape[0] == (1 << 17 if used_hint
-                                           else 1 << 16)
+        assert p["results_c"].shape[0] == 1 << 16
         assert p["budget_hint_next"] == p0["budget_hint_next"]
 
 
