@@ -140,7 +140,15 @@ shapes of the main paths, and drives both paths of the port:
   flags read every pose), a splitting frame and the level-10 rebuild
   after it; then ``bench_torch.py`` and
   ``tools_torch/probe_motion_margin.py`` on the artifact in fresh
-  processes.
+  processes;
+* the model (phase 28): kernel I, the fused per-cluster product of a
+  Mega-NeRF ``NeRF`` at Mill 19's widths, on one block of the chunked
+  forward (256 chunks of 8192 rows over 8 clusters): each of the 12
+  products against its plain version, with its device ms, its bound, the
+  plain ms and cuBLAS's ``baddbmm`` + ``relu_`` on the same operands; the
+  whole forward both ways; a guided stop with the model on the main path
+  (collect C, the query's chunked route through I, compositor D) on the
+  card against the CPU's, ``mlp_fused_rows`` equal to ``mlp_rows``.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -217,6 +225,14 @@ SESSION_ITERS = 5
 # benchmarks/refine_throughput.py: its tree's max_capacity and iterations
 THROUGHPUT_CAPACITY = 400_000
 THROUGHPUT_ITERS = 5
+# Mega-NeRF's NeRF at Mill 19's widths (perfbench/configs/
+# aerial_d11_meganerf.json): a 12-band encoding, an 8 x 256 trunk with the
+# encoding's skip at layer 4, 1940 appearance rows of 48, the SH4 head, 8
+# clusters; phase 28 runs one block of the chunked forward, 256 chunks of
+# 8192 rows (models/meganerf.py BLOCK_ROWS and CHUNK)
+MILL19 = dict(freqs=12, layers=8, skip=4, width=256, app_dim=48,
+              app_count=1940, rgb=12, clusters=8)
+MODEL_BLOCK = (256, 8192)
 # kernel G's synthetic cache: rays, S (the default max_guided_samples), basis
 PADDED_SYNTH = (1 << 17, 128, 9)
 # kernels B's, G's, E's and F's device ms in their first designs (B and G
@@ -602,9 +618,11 @@ def main():
         kernels, smi, os.path.join(ROOT, "build", "aerial_sh4_d9.npz"))
     torch.cuda.empty_cache()
     deep_launches = deep_phase(P, kernels, dev)
+    torch.cuda.empty_cache()
+    model_launches = model_phase(P, kernels, dev, report)
 
     # launches: each path's own run (phases 4, 8, 12, 15, 16, 19, 20, 21,
-    # 22, 23, 24, 25, 26 and 27), summed over the paths for the kernels that
+    # 22, 23, 24, 25, 26, 27 and 28), summed over the paths for the kernels that
     # several paths run; kernel H is on no path (0)
     for k in report:
         k["launches"] = sum(run.get(k["name"], 0) for run in (
@@ -612,7 +630,7 @@ def main():
             viewer_launches, viewer_guided_launches, motion_launches,
             rest_launches, sharded_launches, switches_launches,
             aerial_launches, bench_launches, scripts_launches,
-            probes_launches, deep_launches))
+            probes_launches, deep_launches, model_launches))
     log(json.dumps({"kernels": report}))
     # the one card this run drove (contract: count 1)
     log(json.dumps({"ok": True, "device": {
@@ -5068,6 +5086,223 @@ def deep_phase(P, kernels, dev):
     add_launches(launches, deep_scripts(path))
     log(f"phase 27 in {time.perf_counter() - t_phase:.1f} s; launches "
         f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
+def mill19_arrays(seed=2112):
+    """Host arrays of :data:`MILL19`'s model for ``nerf_params_from_numpy``:
+    the ReLU layers He-normal, the heads at a gain of 1, biases N(0, 0.1^2),
+    the appearance rows N(0, 1)."""
+    m = MILL19
+    rng = np.random.default_rng(seed)
+    enc, W, C = 3 + 6 * m["freqs"], m["width"], m["clusters"]
+
+    def layer(fan_in, fan_out, gain):
+        w = rng.standard_normal((C, fan_in, fan_out)) * np.sqrt(gain / fan_in)
+        b = rng.standard_normal((C, fan_out)) * 0.1
+        return w.astype(np.float32), b.astype(np.float32)
+    out = {"freq_bands": (2.0 ** np.arange(m["freqs"])).astype(np.float32),
+           "trunk_w": [], "trunk_b": []}
+    for l in range(m["layers"]):
+        w, b = layer(enc if l == 0 else W + (enc if l == m["skip"] else 0),
+                     W, 2.0)
+        out["trunk_w"].append(w)
+        out["trunk_b"].append(b)
+    for k, shape, gain in (("sigma", (W, 1), 1.0), ("final", (W, W), 1.0),
+                           ("dir_a", (W + m["app_dim"], W // 2), 2.0),
+                           ("rgb", (W // 2, m["rgb"]), 1.0)):
+        out[f"{k}_w"], out[f"{k}_b"] = layer(*shape, gain)
+    out["appearance"] = rng.standard_normal(
+        (C, m["app_count"], m["app_dim"])).astype(np.float32)
+    return out
+
+
+@contextlib.contextmanager
+def plain_products(PM):
+    """Within the block the model's forward runs the fused product's plain
+    version on the card's tensors."""
+    from unittest import mock
+    with mock.patch.object(PM, "mlp_gemm", PM.mlp_gemm_reference):
+        yield
+
+
+def model_phase(P, kernels, dev, report):
+    """Phase 28: kernel I, the model's fused product, at ``d11_guided``'s
+    shapes: one block of the chunked forward (:data:`MODEL_BLOCK`, chunks
+    cluster-sorted over :data:`MILL19`'s 8 clusters, appearance ids some
+    out of range).  Each of the forward's 12 products, fed the plain
+    forward's own activations, against its plain version (max and mean
+    abs diff), its device ms, its bound (operations at 67 TFLOP/s or bytes
+    at 3.35 TB/s), the plain version's ms and ``library_ms``, cuBLAS's
+    product with the bias on the same operands then the ReLU
+    (``torch.baddbmm`` + ``relu_``, the yardstick, which the port no
+    longer calls); then the whole forward both ways; then a guided stop
+    with the model on ``d11_guided``'s path (collect C, the query's
+    chunked route through kernel I, compositor D) on the card against the
+    CPU's, its launches counted from a reset just before the stop's
+    frame, ``mlp_fused_rows`` equal to ``mlp_rows``.  Returns the stop's
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from mega_nerf_viewer_tpu_torch.models import meganerf as PM
+    from mega_nerf_viewer_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    arrays = mill19_arrays()
+    params = PM.nerf_params_from_numpy(arrays, (MILL19["skip"],),
+                                       device=dev)
+    nb, chunk = MODEL_BLOCK
+    n = nb * chunk
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.rand((nb, chunk, 4), generator=gen, device=dev) * 2 - 1
+    x[..., 3] = torch.randint(-3, MILL19["app_count"] + 3, (nb, chunk),
+                              generator=gen, device=dev).float()
+    cids = torch.sort(torch.randint(0, MILL19["clusters"], (nb,),
+                                    generator=gen, device=dev)).values
+    rows = []
+
+    def product(name, a, w, b, relu, **kw):
+        K, N = w.shape[1], w.shape[2]
+        got = PM.mlp_gemm(a, w, b, cids, relu, **kw)
+        want = PM.mlp_gemm_reference(a, w, b, cids, relu, **kw)
+        if kw.get("out") is not None:
+            got, want = got[..., kw["col"]:kw["col"] + N], \
+                want[..., kw["col"]:kw["col"] + N]
+        err = (got - want).abs()
+        scale = float(want.abs().max())
+        ms, by = device_ms(lambda: PM.mlp_gemm(a, w, b, cids, relu, **kw), 5)
+        plain = cuda_ms(lambda: PM.mlp_gemm_reference(a, w, b, cids, relu,
+                                                       **kw), 2)
+        src = [a.expand(nb, -1, -1)]
+        if kw.get("a2") is not None:
+            src.append(kw["a2"].expand(nb, -1, -1))
+        if kw.get("table") is not None:
+            t = kw["table"][cids]
+            i = kw["ids"].long().clamp(0, t.shape[1] - 1)
+            src.append(torch.gather(t, 1, i[..., None].expand(
+                -1, -1, t.shape[2])))
+        A = torch.cat(src, -1) if len(src) > 1 else src[0]
+        Wg, Bg = w[cids], b[cids][:, None, :]
+
+        def library():
+            y = torch.baddbmm(Bg, A, Wg)
+            return y.relu_() if relu else y
+        with PM._f32_matmul():
+            lib = cuda_ms(library, 5)
+        bms, bby = bound_ms(4 * (n * (K + N) + w.shape[0] * (K + 1) * N),
+                            2 * n * K * N)
+        rows.append(dict(name=name, K=K, N=N, max_abs_err=float(err.max()),
+                         mean_abs_err=float(err.mean()), scale=scale, ms=ms,
+                         ms_by=by, bound_ms=bms, bound_by=bby,
+                         plain_ms=plain, library_ms=lib))
+        log(f"phase 28 product {name} ({n} x {K} -> {N}): max abs diff "
+            f"{float(err.max()):.3e} (mean {float(err.mean()):.3e}, outputs "
+            f"to {scale:.3g}); {ms:.4f} ms ({by}; bound {bms:.4f} ms by "
+            f"{bby}, {100 * bms / ms:.1f}%), plain {plain:.3f} ms, library "
+            f"{lib:.4f} ms")
+        check(float(err.max()) <= 2e-5 * max(1.0, scale),
+              f"mlp_gemm {name} differs by {float(err.max())}")
+        del A, Wg, Bg
+        return want
+
+    g = PM.encode_positions(x[..., :3], params.freq_bands)
+    out = g.new_zeros((nb, chunk, params.output_dim))
+    h = g
+    for l in range(params.n_layers):
+        w, b = params.trunk(l)
+        h = product(f"trunk{l}", g, w, b, True, a2=h) \
+            if l in params.skips else product(f"trunk{l}", h, w, b, True)
+    product("sigma", h, *params.head("sigma"), True, out=out,
+            col=params.output_dim - 1)
+    f = product("final", h, *params.head("final"), False)
+    d = product("dir_a", f, *params.head("dir_a"), True,
+                table=params.appearance, ids=x[..., 3])
+    product("rgb", d, *params.head("rgb"), False, out=out, col=0)
+    del g, h, f, d, out
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    log(f"phase 28 products: kernel {total['ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms ({100 * total['bound_ms'] / total['ms']:.1f}"
+        f"%), plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms a block of {n} rows")
+
+    # the whole forward of the block, both ways
+    kernels.reset_launch_counts()
+    fwd = PM._nerf_forward(params, x, cids)
+    check(kernels.LAUNCHES["mlp_gemm"] == params.n_layers + 4,
+          f"forward launches {kernels.LAUNCHES}")
+    with plain_products(PM):
+        fwd_p = PM._nerf_forward(params, x, cids)
+    err = (fwd - fwd_p).abs()
+    fwd_ms = cuda_ms(lambda: PM._nerf_forward(params, x, cids), 3)
+    with plain_products(PM):
+        fwd_plain_ms = cuda_ms(lambda: PM._nerf_forward(params, x, cids), 2)
+    log(f"phase 28 forward of one block: {fwd_ms:.3f} ms (plain "
+        f"{fwd_plain_ms:.3f} ms); all 13 columns max abs diff "
+        f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
+    check(bool(torch.isfinite(fwd).all()), "non-finite model outputs")
+    check(float(err.max()) <= 2e-5 * max(1.0, float(fwd_p.abs().max())),
+          "the forward differs from its plain version")
+    report.append(dict(
+        name="mlp_gemm", route="cuda",
+        source="mega_nerf_viewer_tpu_torch/csrc/mlp_gemm.cu",
+        replaces=None, max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=total["ms"], ms_by="profiler", plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"], bound_by="operations",
+        library_ms=total["library_ms"]))
+    del x, fwd, fwd_p, err
+    torch.cuda.empty_cache()
+
+    # a guided stop with the model on the port's main path, on the card
+    # and on the CPU: the binary shell with no splitting and no capacity
+    # pressure takes the leaf-map collect (kernel C), the chunked route of
+    # the query and the compact compositor (kernel D); the first frame
+    # lays the hints, a drag moves the pose, and the stop's frame after
+    # end_drag() is the one counted
+    opt = P.RenderOptions(use_guided_sampling=True, max_guided_samples=16,
+                          need_viewdir=False, appearance_embedding=1)
+    frames, counters, routes = [], None, None
+    for device in (dev, torch.device("cpu")):
+        model = PM.nerf_model_from_numpy(
+            arrays, (MILL19["skip"],), (2, 4), (-1.0, -1.0, -1.0),
+            (1.0, 1.0, 1.0), device=device)
+        v = P.Viewer(P.shell_tree(depth=7, basis_dim=4, sigma_inside=400.0,
+                                  device=device),
+                     camera=camera(P.Camera, 320, 180, FOCAL * 320 / WIDTH),
+                     options=opt, model=model, device=device)
+        v.render()
+        v.camera.begin_drag(0.0, 0.0, False, True)
+        v.camera.drag_update(-4.0, 0.0)
+        v.render()
+        if device == dev:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            profiling.reset()
+            with profile(activities=[ProfilerActivity.CPU]):
+                v.camera.end_drag()
+                frames.append(torch.as_tensor(v.render()).cpu())
+            spans, counters = profiling.recorded()[:2]
+            profiling.reset()
+            launches = dict(kernels.LAUNCHES)
+            routes = [s.attrs["route"] for s in spans
+                      if s.name == "model.query"]
+        else:
+            v.camera.end_drag()
+            frames.append(torch.as_tensor(v.render()))
+        del v, model
+    err = float((frames[0] - frames[1]).abs().max())
+    log(f"phase 28 guided stop 320x180 with the model on the shell: card "
+        f"vs CPU max abs diff {err:.3e}; query routes {routes}, mlp_rows "
+        f"{counters.get('mlp_rows')}, mlp_fused_rows "
+        f"{counters.get('mlp_fused_rows')}; launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(routes == ["chunked"], f"the stop's queries took {routes}")
+    check(min(launches[k] for k in ("collect", "compact_composite",
+                                    "mlp_gemm")) > 0
+          and launches["exact_collect"] == launches["padded_composite"] == 0,
+          f"the stop left the main path: {launches}")
+    check(counters.get("mlp_rows", 0) > 0 and counters.get(
+        "mlp_fused_rows") == counters["mlp_rows"],
+        f"fused rows {counters}")
+    check(err <= 1e-4, f"guided stop card vs CPU differs by {err}")
     return launches
 
 

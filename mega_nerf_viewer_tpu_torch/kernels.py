@@ -7,13 +7,14 @@ a hash of the sources and flags, and loaded with ``ctypes``.  Every kernel
 is built with ``-fmad=false``: the JAX reference rounds each f32 op
 separately except where the kernels call ``__fmaf_rn`` explicitly, and
 the prepass's ``t`` must be bit-equal to the march's and the collect
-march's.  The eight kernels: ``skip_prepass`` (B), ``march`` (A, with
+march's.  The nine kernels: ``skip_prepass`` (B), ``march`` (A, with
 votes and depth mode), ``collect`` (C, the guided collect march),
 ``compact_composite`` (D, the compact guided compositor, with depth
 mode), ``exact_march`` (E, the exact renderer's march with votes and
 visit marks), ``exact_collect`` (F, the exact guided collect),
-``padded_composite`` (G, the padded guided compositor) and
-``gather_chunk_sums`` (H, the row-gather probe).
+``padded_composite`` (G, the padded guided compositor),
+``gather_chunk_sums`` (H, the row-gather probe) and ``mlp_gemm`` (I, one
+fused per-cluster product of the Mega-NeRF model).
 
 Each launch function checks its tensors, allocates the outputs, launches
 on PyTorch's current stream, raises on a non-zero ``cudaGetLastError()``
@@ -34,12 +35,14 @@ from pathlib import Path
 
 import torch
 
+from .utils import profiling
+
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 SOURCES = ("skip_prepass.cu", "march.cu", "collect.cu",
            "compact_composite.cu", "exact_march.cu", "exact_collect.cu",
-           "padded_composite.cu", "gather_probe.cu")
+           "padded_composite.cu", "gather_probe.cu", "mlp_gemm.cu")
 HEADERS = ("common.cuh", "march_step.cuh", "descend_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -48,7 +51,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"skip_prepass": 0, "march": 0, "march_gated": 0, "collect": 0,
             "compact_composite": 0, "compact_composite_depth": 0,
             "exact_march": 0, "exact_collect": 0, "padded_composite": 0,
-            "gather_chunk_sums": 0}
+            "gather_chunk_sums": 0, "mlp_gemm": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -109,6 +112,11 @@ _SIGNATURES = {
                                 _P),
     # table, M, W, idx, n_chunks, out, stream
     "gather_chunk_sums_launch": (_P, _L, _I, _P, _I, _P, _P),
+    # a1, a1_g, lda1, k1, a2, a2_g, lda2, ids, ids_g, ids_r, n_app, k,
+    # cids, n_clusters, groups, n, w, b, n_out, relu, out, out_g, ldo, col0,
+    # stream
+    "mlp_gemm_launch": (_P, _L, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P,
+                        _I, _I, _I, _P, _P, _I, _I, _P, _L, _I, _I, _P),
 }
 
 
@@ -641,7 +649,105 @@ def gather_chunk_sums(table, idx):
     return out
 
 
-__all__ = ["LAUNCHES", "SOURCES", "build", "collect", "compact_composite",
-           "exact_attributes", "exact_collect", "exact_march",
-           "gather_chunk_sums", "library_path", "march", "padded_composite",
-           "reset_launch_counts", "skip_prepass"]
+def check_mlp_gemm(a, w, b, cids, a2=None, table=None, ids=None,
+                   out=None, col=0) -> tuple:
+    """Check the arguments of :func:`mlp_gemm` (on any device, all on
+    ``a``'s); return (groups, rows a group, k1, k, n_out).  ``a`` f32
+    [1 or G, n, k1], ``w`` f32 [C, k, n_out], ``b`` f32 [C, n_out],
+    ``cids`` i64 [G]; a second source of ``k - k1`` columns: ``a2`` f32
+    [1 or G, n, k2], or the table f32 [C, A, k2] with ``ids`` f32 [1 or G,
+    n] (any strides); ``out`` f32 [G, n, ldo] with ``col + n_out <= ldo``.
+    All contiguous but ``ids``."""
+    dev = a.device
+    f32 = torch.float32
+    if cids.dim() != 1 or a.dim() != 3:
+        raise ValueError(f"cids {tuple(cids.shape)} must be [G], a "
+                         f"{tuple(a.shape)} [1 or G, n, k1]")
+    G = cids.shape[0]
+    _check("cids", cids, torch.int64, (G,), dev)
+    n, k1 = a.shape[1], a.shape[2]
+    _check("a", a, f32, (1 if a.shape[0] == 1 else G, n, k1), dev)
+    if a2 is not None and table is not None:
+        raise ValueError("one second source: a2 or the table, not both")
+    if (table is None) != (ids is None):
+        raise ValueError("a table source takes both table and ids")
+    k2 = 0
+    if a2 is not None:
+        k2 = a2.shape[-1]
+        _check("a2", a2, f32, (1 if a2.shape[0] == 1 else G, n, k2), dev)
+    if w.dim() != 3:
+        raise ValueError(f"w {tuple(w.shape)} must be [C, k, n_out]")
+    C, n_out = w.shape[0], w.shape[2]
+    if table is not None:
+        k2 = table.shape[-1]
+        _check("table", table, f32, (C, table.shape[1], k2), dev)
+        if table.shape[1] == 0:
+            raise ValueError("an empty appearance table")
+        if ids.dtype != f32 or ids.device != dev or tuple(ids.shape) not in (
+                (1, n), (G, n)):
+            raise ValueError(f"ids: got {tuple(ids.shape)} {ids.dtype} on "
+                             f"{ids.device}; expected (1 or {G}, {n}) "
+                             f"{f32} on {dev}")
+    _check("w", w, f32, (C, k1 + k2, n_out), dev)
+    _check("b", b, f32, (C, n_out), dev)
+    if out is not None:
+        ldo = out.shape[-1]
+        _check("out", out, f32, (G, n, ldo), dev)
+        if col < 0 or col + n_out > ldo:
+            raise ValueError(f"out: columns {col}..{col + n_out} of {ldo}")
+    return G, n, k1, k1 + k2, n_out
+
+
+def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
+             col=0, counter=None):
+    """Launch the fused per-cluster product (csrc/mlp_gemm.cu): for each
+    group g of rows, ``act(cat[a, second] W[c] + b[c])`` with ``c =
+    cids[g]``, ``act`` ReLU or none, the second source ``a2``'s rows or
+    the table's rows ``table[c, clamp(int(ids))]``; a source with a leading
+    1 is shared by every group.  Writes columns ``col ..`` of ``out`` and
+    returns it (a new f32 [G, n, n_out] when ``out`` is None).  A launch
+    adds its G x n rows to the profiling counter ``counter`` when one is
+    named.  See :func:`check_mlp_gemm`."""
+    G, n, k1, k, n_out = check_mlp_gemm(a, w, b, cids, a2, table, ids, out,
+                                        col)
+    dev = _cuda_device(a)
+    if out is None:
+        out = torch.empty((G, n, n_out), dtype=torch.float32, device=dev)
+    ldo = out.shape[2]
+    src = a2 if a2 is not None else table
+    lda2 = 0 if src is None else src.shape[-1]
+    n_app = 0 if table is None else table.shape[1]
+    # the kernel's row offsets are int32, its grid 128 rows a block
+    if max(n, n_app) * max(k1, lda2, ldo) >= 1 << 31 \
+            or -(-n // 128) > 65535 or G > 65535:
+        raise ValueError(f"{G} groups of {n} rows: past the kernel's int32 "
+                         f"offsets or grid")
+    if G == 0 or n == 0 or n_out == 0:
+        return out
+    shared = (a.shape[0] == 1, a2 is not None and a2.shape[0] == 1,
+              ids is not None and ids.shape[0] == 1)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.mlp_gemm_launch(
+            a.data_ptr(), 0 if shared[0] else n * k1, k1, k1,
+            None if src is None else src.data_ptr(),
+            0 if a2 is None or shared[1] else n * lda2, lda2,
+            None if ids is None else ids.data_ptr(),
+            0 if ids is None or shared[2] else ids.stride(0),
+            0 if ids is None else ids.stride(1),
+            n_app, k, cids.data_ptr(),
+            w.shape[0], G, n, w.data_ptr(), b.data_ptr(), n_out,
+            int(bool(relu)), out.data_ptr(), n * ldo, ldo, int(col),
+            _stream(dev))
+    _raise_on(err, "mlp_gemm")
+    LAUNCHES["mlp_gemm"] += 1
+    if counter is not None:
+        profiling.count(counter, G * n)
+    return out
+
+
+__all__ = ["LAUNCHES", "SOURCES", "build", "check_mlp_gemm", "collect",
+           "compact_composite", "exact_attributes", "exact_collect",
+           "exact_march", "gather_chunk_sums", "library_path", "march",
+           "mlp_gemm", "padded_composite", "reset_launch_counts",
+           "skip_prepass"]

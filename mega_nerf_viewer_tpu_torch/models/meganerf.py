@@ -5,10 +5,14 @@ the reference's LibTorch model layer (``src/renderer/cuda_renderer.cpp:
 518-543`` load_model, ``:165-203`` query_submodules).  The reference keeps
 a TorchScript module per spatial cluster; here the submodules' weights
 are converted once into stacked weights with one leading cluster axis and
-inference is batched matrix products.  The products are plain PyTorch
-(``torch.bmm``), as the JAX package leaves them to XLA outside any Pallas
-kernel; they run in full f32 (TF32 off, see :func:`_f32_matmul`) because
-the reference is f32.
+inference is batched matrix products, in full f32 (TF32 off) because the
+reference is f32.  A Linear/ReLU stack's products are plain PyTorch
+(``torch.bmm``, see :func:`_f32_matmul`), as the JAX package leaves them
+to XLA outside any Pallas kernel.  Mega-NeRF's ``NeRF`` runs each layer as
+one :func:`mlp_gemm`: on the card the port's fused product kernel
+(``csrc/mlp_gemm.cu``), which reads each group's cluster weights in place
+and does the bias, the ReLU and the concatenations inside the product;
+its plain version on the CPU.
 
 Container contract (reference ``cuda_renderer.cpp:518-543``):
   * attrs ``grid_dim`` (int[2]), ``min_position`` / ``max_position``
@@ -44,11 +48,13 @@ Cluster id for a point is a 2-D cell over (y, z):
 ``g1 * grid_dim[1] + g2`` (reference ``rt_core.cuh:541-549``).
 
 The query records the span ``model.query`` (``route`` ``chunked`` or
-``all``, ``rows`` the rows handed in) and the counters ``mlp_queries``
-and ``mlp_rows`` (rows the forward computed, pad rows included) while a
-profiler session runs (``utils/profiling.py``); ``mlp_samples`` (real
-samples) is counted where they are known: :meth:`MegaNeRFModel.query_device`
-and the guided fast path.
+``all``, ``rows`` the rows handed in) and the counters ``mlp_queries``,
+``mlp_rows`` (rows the forward computed, pad rows included) and
+``mlp_fused_rows`` (those of them the card's fused product kernel
+computed, counted where its forward's last layer launches; none on the
+CPU) while a profiler session runs (``utils/profiling.py``);
+``mlp_samples`` (real samples) is counted where they are known:
+:meth:`MegaNeRFModel.query_device` and the guided fast path.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import kernels
 from ..device import resolve_device
 from ..utils import profiling
 
@@ -229,42 +236,92 @@ def encode_positions(p: torch.Tensor, freq_bands: torch.Tensor
     return torch.cat([p, sc.reshape(*p.shape[:-1], -1)], -1)
 
 
-def _nerf_forward(params: NeRFParams, x: torch.Tensor, pick,
-                  groups: int) -> torch.Tensor:
-    """:class:`NeRFParams`' forward on ``groups`` groups of rows, each
-    group one cluster's.  ``x`` f32 [G or 1, n, 4] (a leading 1 is shared
-    by every group); ``pick(t)`` gives the groups' slice [G, ...] of a
-    stacked [C, ...] buffer.  Returns f32 [G, n, out]."""
-    g = encode_positions(x[..., :3], params.freq_bands)
-    g = g.expand(groups, -1, -1)
+def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
+             col=0, counter=None):
+    """One fused product of the model's forward, on the rows of ``G =
+    len(cids)`` groups, group ``g`` cluster ``cids[g]``'s: ``act(cat[a,
+    second] W[c] + b[c])``, ``act`` ReLU or none, with the second source
+    ``a2``'s rows, or the rows ``table[c, clamp(int(ids))]`` of the
+    cluster's appearance table, or none; a source with a leading 1 is
+    shared by every group.  The result goes to columns ``col ..`` of
+    ``out`` [G, n, ldo] (a new [G, n, n_out] when ``out`` is None), which
+    is returned.  The CUDA kernel (``kernels.mlp_gemm``) for CUDA tensors,
+    which adds its rows to the profiling counter ``counter`` when one is
+    named; the plain version for CPU tensors, which counts nothing; shapes
+    as ``kernels.check_mlp_gemm``."""
+    if a.device.type != "cpu":
+        return kernels.mlp_gemm(a, w, b, cids, relu, a2, table, ids, out,
+                                col, counter)
+    kernels.check_mlp_gemm(a, w, b, cids, a2, table, ids, out, col)
+    return mlp_gemm_reference(a, w, b, cids, relu, a2, table, ids, out, col)
 
-    def linear(h, wb):
-        return torch.baddbmm(pick(wb[1])[:, None, :], h, pick(wb[0]))
 
+def mlp_gemm_reference(a, w, b, cids, relu, a2=None, table=None, ids=None,
+                       out=None, col=0, counter=None):
+    """:func:`mlp_gemm` as plain torch ops: the groups' weights and biases
+    gathered, the sources concatenated, one batched product with the bias
+    (TF32 off), then the ReLU.  ``counter`` is taken and not counted: no
+    kernel ran."""
+    G = cids.shape[0]
+    src = [a.expand(G, -1, -1)]
+    if a2 is not None:
+        src.append(a2.expand(G, -1, -1))
+    if table is not None:
+        t = table[cids]
+        i = ids.long().clamp(0, t.shape[1] - 1).expand(G, -1)
+        src.append(torch.gather(t, 1, i[..., None].expand(-1, -1,
+                                                          t.shape[2])))
     with _f32_matmul():
-        h = g
-        for l in range(params.n_layers):
-            if l in params.skips:
-                h = torch.cat([g, h], -1)
-            h = linear(h, params.trunk(l)).relu_()
-        sigma = linear(h, params.head("sigma"))
-        sigma = torch.relu(sigma) if params.sigma_activation == "relu" \
-            else torch.nn.functional.softplus(sigma - 1.0)
-        f = linear(h, params.head("final"))
-        table = pick(params.appearance)
-        ids = x[..., 3].long().clamp(0, table.shape[1] - 1)
-        a = torch.gather(table, 1, ids.expand(groups, -1)[..., None]
-                         .expand(-1, -1, table.shape[2]))
-        c = linear(linear(torch.cat([f, a], -1),
-                          params.head("dir_a")).relu_(), params.head("rgb"))
-    return torch.cat([c, sigma], -1)
+        y = torch.baddbmm(b[cids][:, None, :], torch.cat(src, -1)
+                          if len(src) > 1 else src[0], w[cids])
+    if relu:
+        y.relu_()
+    if out is None:
+        return y
+    out[..., col:col + y.shape[2]] = y
+    return out
+
+
+def _nerf_forward(params: NeRFParams, x: torch.Tensor, cids: torch.Tensor,
+                  out: Optional[torch.Tensor] = None,
+                  counter: Optional[str] = None) -> torch.Tensor:
+    """:class:`NeRFParams`' forward on ``G = len(cids)`` groups of rows,
+    group ``g`` cluster ``cids[g]``'s (i64).  ``x`` f32 [G or 1, n, 4] (a
+    leading 1 is shared by every group).  Each layer is one
+    :func:`mlp_gemm`: the skip reads ``[g, h]`` and the colour branch
+    ``[f, appearance row]`` as two sources, and the rgb and sigma heads
+    write columns 0.. and the last of the output; the rgb head's launch,
+    the last, adds the G x n rows to the profiling counter ``counter``
+    when one is named.  Returns f32 [G, n, out], into ``out`` when
+    given."""
+    G, n = cids.shape[0], x.shape[1]
+    g = encode_positions(x[..., :3], params.freq_bands)
+    if out is None:
+        out = g.new_empty((G, n, params.output_dim))
+    h = g
+    for l in range(params.n_layers):
+        w, b = params.trunk(l)
+        h = mlp_gemm(g, w, b, cids, True, a2=h) if l in params.skips \
+            else mlp_gemm(h, w, b, cids, True)
+    relu_sigma = params.sigma_activation == "relu"
+    mlp_gemm(h, *params.head("sigma"), cids, relu_sigma, out=out,
+             col=out.shape[2] - 1)
+    if not relu_sigma:
+        sigma = out[..., -1:]
+        sigma.copy_(torch.nn.functional.softplus(sigma - 1.0))
+    f = mlp_gemm(h, *params.head("final"), cids, False)
+    d = mlp_gemm(f, *params.head("dir_a"), cids, True,
+                 table=params.appearance, ids=x[..., 3])
+    mlp_gemm(d, *params.head("rgb"), cids, False, out=out, col=0,
+             counter=counter)
+    return out
 
 
 def _forward_one(params, cluster: int, x: torch.Tensor) -> torch.Tensor:
     """One cluster's forward on ``x`` [n, in], either parameter kind."""
     if isinstance(params, NeRFParams):
-        return _nerf_forward(params, x[None], lambda t: t[cluster:cluster + 1],
-                             1)[0]
+        cids = torch.full((1,), cluster, dtype=torch.int64, device=x.device)
+        return _nerf_forward(params, x[None], cids)[0]
     return mlp_forward(params, cluster, x)
 
 
@@ -273,34 +330,33 @@ def _forward_all(params, cluster_ids: torch.Tensor,
     """Every cluster on every sample, then the select (either kind)."""
     if not isinstance(params, NeRFParams):
         return mlp_forward_all(params, cluster_ids, x)
-    h = _nerf_forward(params, x[None], lambda t: t, params.n_clusters)
+    h = _nerf_forward(params, x[None], torch.arange(params.n_clusters,
+                                                    device=x.device),
+                      counter="mlp_fused_rows")
     return h[cluster_ids.long(), torch.arange(x.shape[0], device=x.device)]
-
-
-def _forward_block(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
-                   chunk: int) -> torch.Tensor:
-    """The cluster-pure chunked forward of one block (either kind); see
-    :func:`mlp_forward_chunked`."""
-    if not isinstance(params, NeRFParams):
-        return mlp_forward_chunked(params, x_al, chunk_cids, chunk)
-    nb = x_al.shape[0] // chunk
-    cids = chunk_cids.long()
-    h = _nerf_forward(params, x_al.reshape(nb, chunk, x_al.shape[-1]),
-                      lambda t: t[cids], nb)
-    return h.reshape(nb * chunk, -1)
 
 
 def _forward_chunked(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
                      chunk: int) -> torch.Tensor:
-    """The cluster-pure chunked forward in blocks of at most
-    :data:`BLOCK_ROWS` rows, written into one output."""
+    """The cluster-pure chunked forward (either kind; see
+    :func:`mlp_forward_chunked`) in blocks of at most :data:`BLOCK_ROWS`
+    rows, written into one output."""
     nb = x_al.shape[0] // chunk
     per = max(1, BLOCK_ROWS // chunk)
+    if isinstance(params, NeRFParams):
+        out = x_al.new_empty((nb, chunk, params.output_dim))
+        x = x_al.reshape(nb, chunk, x_al.shape[-1])
+        cids = chunk_cids.long().contiguous()
+        for b0 in range(0, nb, per):
+            b1 = min(nb, b0 + per)
+            _nerf_forward(params, x[b0:b1], cids[b0:b1], out[b0:b1],
+                          "mlp_fused_rows")
+        return out.reshape(nb * chunk, -1)
     out = None
     for b0 in range(0, nb, per):
         b1 = min(nb, b0 + per)
-        h = _forward_block(params, x_al[b0 * chunk:b1 * chunk],
-                           chunk_cids[b0:b1], chunk)
+        h = mlp_forward_chunked(params, x_al[b0 * chunk:b1 * chunk],
+                                chunk_cids[b0:b1], chunk)
         if out is None:
             if b1 == nb:
                 return h
@@ -457,8 +513,9 @@ def query_grouped(params, cluster_ids: torch.Tensor,
     """Shape-adaptive grouped dispatch: the chunked route for 2^16 samples
     or more, the all-clusters select below (``meganerf.py:231-240``).
     ``params`` is either kind (:class:`MLPParams`, :class:`NeRFParams`).
-    The span ``model.query`` and the counters ``mlp_queries`` and
-    ``mlp_rows`` come from shapes the host holds."""
+    The span ``model.query`` and the counters ``mlp_queries``,
+    ``mlp_rows`` and ``mlp_fused_rows`` (kernel I's rows, on the card) come
+    from shapes the host holds."""
     n = x.shape[0]
     route = "chunked" if n >= CHUNKED_MIN else "all"
     with profiling.annotate("model.query", route=route, rows=n):

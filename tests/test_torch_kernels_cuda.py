@@ -8,7 +8,9 @@ reduces the record buffer; both round each op alike); the compact
 compositor within 1e-6 (a running product along the ray against a
 cumprod and a masked sum); the padded compositor within 1e-6 (a product
 scan in tiles of 8 lanes and a butterfly sum against a cumprod and a
-masked sum).  The march's gated launch is bit-equal to the ungated one
+masked sum).  The model's fused product (kernel I) within 2e-5 of
+its plain version, relative to the largest output where that exceeds 1:
+both are f32 sums over K, in another order.  The march's gated launch is bit-equal to the ungated one
 when taken and writes nothing when closed; the frames of the device
 policy and of the re-hint motion frame run under sync debug mode
 "error".
@@ -719,3 +721,103 @@ def test_motion_frame_on_card_matches_cpu(cuda, stride):
         if a is not None:
             assert torch.equal(a, b)
     assert float((imc - img_).abs().max()) <= 1e-5
+
+
+# ----------------------------------------------------------------------
+# The model slice: kernel I, the fused per-cluster product.
+# ----------------------------------------------------------------------
+def _gemm_case(cuda, case):
+    """(a, w, b, cids, relu, keywords) at the kernel's edges: rows not a
+    multiple of its 128-row tile, K of 75 and its tail, a source shared by
+    every group beside a second one (the skip), the appearance table with
+    ids out of range, the narrow heads into a column window, one group of
+    five rows, and a cluster id per group with a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+    C, n = 4, 300
+    cids = torch.tensor([2, 0, 2], device=cuda)
+    kw = {}
+    if case == "trunk0_ragged":
+        a, w, b = r(3, n, 75), r(C, 75, 256), r(C, 256)
+    elif case == "skip_shared":
+        a, w, b = r(1, n, 75), r(C, 331, 256), r(C, 256)
+        kw["a2"] = r(3, n, 256).relu()
+    elif case == "appearance_clamped":
+        a, w, b = r(3, n, 256), r(C, 304, 128), r(C, 128)
+        kw["table"] = r(C, 40, 48)
+        ids = torch.randint(-5, 45, (3, n, 2), generator=g,
+                            device=cuda).float()
+        kw["ids"] = ids[..., 1]
+    elif case in ("rgb_window", "sigma_window"):
+        N, col = (12, 0) if case == "rgb_window" else (1, 12)
+        a, w, b = r(3, n, 128), r(C, 128, N), r(C, N)
+        kw["out"], kw["col"] = torch.full((3, n, 13), 7.0, device=cuda), col
+    else:                                   # one_group
+        cids = torch.tensor([3], device=cuda)
+        a, w, b = r(1, 5, 256), r(C, 256, 256), r(C, 256)
+    return a, w, b, cids, case != "rgb_window", kw
+
+
+@pytest.mark.parametrize("case", ["trunk0_ragged", "skip_shared",
+                                  "appearance_clamped", "rgb_window",
+                                  "sigma_window", "one_group"])
+def test_mlp_gemm_kernel_matches_plain(cuda, case):
+    from mega_nerf_viewer_tpu_torch.models import meganerf as PM
+    a, w, b, cids, relu, kw = _gemm_case(cuda, case)
+    kw_p = dict(kw, out=kw["out"].clone()) if "out" in kw else kw
+    before = kernels.LAUNCHES["mlp_gemm"]
+    got = PM.mlp_gemm(a, w, b, cids, relu, **kw)
+    assert kernels.LAUNCHES["mlp_gemm"] == before + 1
+    want = PM.mlp_gemm_reference(a, w, b, cids, relu, **kw_p)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2e-5 * scale
+    if "out" in kw:                 # columns outside the window untouched
+        keep = torch.ones(13, dtype=torch.bool)
+        keep[kw["col"]:kw["col"] + w.shape[2]] = False
+        assert bool((got[..., keep] == 7.0).all())
+
+
+def test_nerf_forward_on_card_matches_cpu(cuda):
+    """The model's forward at Mill 19's widths through kernel I on the card
+    against its plain version on the CPU: all 13 columns of both routes of
+    ``query_grouped`` (the chunked one with a small chunk).  Profiled, the
+    card's ``mlp_fused_rows`` equals ``mlp_rows`` on both routes, and the
+    CPU counts none."""
+    from torch.profiler import ProfilerActivity, profile
+    from mega_nerf_viewer_tpu_torch.models import meganerf as PM
+    from mega_nerf_viewer_tpu_torch.utils import profiling
+    rng = np.random.default_rng(9)
+    C, enc, W = 8, 75, 256
+
+    def layer(i, o):
+        return (rng.standard_normal((C, i, o)) * np.sqrt(2 / i),
+                rng.standard_normal((C, o)) * 0.1)
+    trunk = [layer(enc if l == 0 else W + (enc if l == 4 else 0), W)
+             for l in range(8)]
+    arrays = {"freq_bands": 2.0 ** np.arange(12), "appearance":
+              rng.standard_normal((C, 30, 48)),
+              "trunk_w": [t[0] for t in trunk],
+              "trunk_b": [t[1] for t in trunk]}
+    for k, (i, o) in {"sigma": (W, 1), "final": (W, W),
+                      "dir_a": (W + 48, 128), "rgb": (128, 12)}.items():
+        arrays[f"{k}_w"], arrays[f"{k}_b"] = layer(i, o)
+    x = np.concatenate([rng.uniform(-1, 1, (700, 3)),
+                        rng.integers(-2, 33, (700, 1))], 1).astype(np.float32)
+    ids = rng.integers(0, C, 700)
+    outs, counts = [], []
+    for dev in ("cpu", cuda):
+        params = PM.nerf_params_from_numpy(arrays, (4,), device=dev)
+        xt, it = torch.from_numpy(x).to(dev), torch.from_numpy(ids).to(dev)
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            outs.append([PM._forward_all(params, it, xt).cpu(),
+                         PM._query_chunked(params, it, xt, 128).cpu()])
+        counts.append(profiling.recorded()[1])
+        profiling.reset()
+    assert "mlp_fused_rows" not in counts[0]
+    assert counts[1]["mlp_fused_rows"] == 8 * 700 + counts[0]["mlp_rows"]
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= 2e-5 * max(1.0, float(
+            a.abs().max()))

@@ -1,7 +1,8 @@
 """Mega-NeRF's ``NeRF`` submodule in the port: the converted model
 against the plain reference (``tests/meganerf_reference.py``) on both
-routes of ``query_grouped``, the container's conversion and its fallback,
-a Viewer guided frame, and the query's span and counters.
+routes of ``query_grouped`` and through the fused product's plain
+version, the product's argument checks, the container's conversion and
+its fallback, a Viewer guided frame, and the query's span and counters.
 
 Tolerances, with their reasons:
   * model outputs on the same rows: 2e-5 absolute and relative.  Both
@@ -26,6 +27,7 @@ from torch import nn
 from torch.profiler import ProfilerActivity, profile
 
 import mega_nerf_viewer_tpu_torch as P
+from mega_nerf_viewer_tpu_torch import kernels
 from mega_nerf_viewer_tpu_torch.models import meganerf as PM
 from mega_nerf_viewer_tpu_torch.utils import profiling
 
@@ -187,6 +189,84 @@ def test_chunked_route_in_blocks(tmp_path, monkeypatch, kind):
                                    atol=TOL)
 
 
+@pytest.mark.parametrize("route", ["chunked", "all"])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("widths", ["tiny", "mill19"])
+def test_nerf_forward_through_the_plain_product(monkeypatch, widths, act,
+                                                route):
+    """``_nerf_forward`` through the fused product's plain version
+    (``mlp_gemm_reference``, one call a layer) against the reference
+    modules on all 13 columns: the chunked route at a small chunk with
+    ragged cluster segments (0, 1, 37 and 90 rows), the all-clusters route,
+    the skip layers (two at the tiny widths), appearance ids out of range
+    (the modules read them clamped), sigma ReLU and shifted softplus."""
+    kw = dict(layer_dim=16, pos_xyz_dim=4, layers=5, skip_layers=(1, 3),
+              appearance_dim=4) if widths == "tiny" else {}
+    mods = _modules(4, seed=11, sigma_activation=act, **kw)
+    params = PM._convert_nerf(mods, 4)
+    assert params.skips == ((1, 3) if widths == "tiny" else (4,))
+    rng = np.random.default_rng(12)
+    ids = np.repeat(np.arange(4), [0, 1, 37, 90])
+    rng.shuffle(ids)
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-1, 1, (ids.size, 3)),
+        rng.integers(-3, APPS + 3, (ids.size, 1))], 1).astype(np.float32))
+    assert bool((x[:, 3] < 0).any() and (x[:, 3] >= APPS).any())
+    ids = torch.from_numpy(ids)
+    calls = []
+    plain = PM.mlp_gemm_reference
+    monkeypatch.setattr(PM, "mlp_gemm_reference",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    got = PM._query_chunked(params, ids, x, 32) if route == "chunked" \
+        else PM._forward_all(params, ids, x)
+    assert len(calls) == params.n_layers + 4
+    clamped = x.clone()
+    clamped[:, 3].clamp_(0, APPS - 1)
+    assert got.shape == (ids.numel(), 13)
+    np.testing.assert_allclose(got.numpy(), _want(mods, ids, clamped).numpy(),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("bad", ["w_dtype", "b_shape", "a_noncontiguous",
+                                 "cids_dtype", "a2_rows", "ids_dtype",
+                                 "out_window", "two_sources", "on_the_cpu"])
+def test_mlp_gemm_rejects_bad_inputs(bad):
+    """The fused product's wrapper, and the kernel's behind it, refuse a
+    wrong dtype, shape or a non-contiguous input with the argument's name
+    (on the CPU as on the card); the kernel's refuses CPU tensors."""
+    kw = dict(a=torch.randn(3, 10, 8), w=torch.randn(2, 8, 5),
+              b=torch.randn(2, 5), cids=torch.tensor([0, 1, 1]), relu=True)
+    match = {"w_dtype": "^w:", "b_shape": "^b:", "a_noncontiguous": "^a:",
+             "cids_dtype": "^cids:", "a2_rows": "^a2:", "ids_dtype": "^ids:",
+             "out_window": "^out: columns", "two_sources": "one second",
+             "on_the_cpu": "CUDA tensors only"}[bad]
+    if bad == "w_dtype":
+        kw["w"] = kw["w"].double()
+    elif bad == "b_shape":
+        kw["b"] = torch.randn(2, 6)
+    elif bad == "a_noncontiguous":
+        kw["a"] = torch.randn(3, 8, 10).transpose(1, 2)
+    elif bad == "cids_dtype":
+        kw["cids"] = kw["cids"].int()
+    elif bad == "a2_rows":
+        kw["w"], kw["a2"] = torch.randn(2, 12, 5), torch.randn(3, 9, 4)
+    elif bad == "ids_dtype":
+        kw["w"], kw["table"] = torch.randn(2, 11, 5), torch.randn(2, 6, 3)
+        kw["ids"] = torch.zeros(3, 10, dtype=torch.int64)
+    elif bad == "out_window":
+        kw["out"], kw["col"] = torch.zeros(3, 10, 13), 9
+    elif bad == "two_sources":
+        kw["a2"], kw["table"] = torch.randn(3, 10, 2), torch.randn(2, 6, 2)
+        kw["ids"] = torch.zeros(3, 10)
+    before = dict(kernels.LAUNCHES)
+    if bad != "on_the_cpu":
+        with pytest.raises(ValueError, match=match):
+            PM.mlp_gemm(**kw)
+    with pytest.raises(ValueError, match=match):
+        kernels.mlp_gemm(**kw)
+    assert kernels.LAUNCHES == before
+
+
 def test_swapped_skip_order_falls_back(tmp_path):
     """The encoded input after the hidden state (not ``nerf.py``'s order):
     the widths walk, the replay does not, so the container loads through
@@ -230,9 +310,10 @@ def test_viewer_guided_frame_matches_the_reference_modules(mill19):
 
 
 def test_profiled_stop_records_the_query(mill19):
-    """A profiled guided stop: ``model.query`` and the three counters; the
-    host syncs of the stop are those of the same stop with a Linear/ReLU
-    model."""
+    """A profiled guided stop: ``model.query`` and the query's counters,
+    with no ``mlp_fused_rows`` (kernel I's rows) on the CPU, where the
+    plain product runs; the host syncs of the stop are those of the same
+    stop with a Linear/ReLU model."""
     def stop(model):
         v = _viewer(model)
         v.render()
@@ -252,11 +333,13 @@ def test_profiled_stop_records_the_query(mill19):
     assert len(q) == counters["mlp_queries"] >= 1
     assert all(s.attrs["route"] == "all" for s in q)
     assert sum(s.attrs["rows"] for s in q) * 8 == counters["mlp_rows"]
+    assert "mlp_fused_rows" not in counters
     assert 0 < counters["mlp_samples"] <= q[-1].attrs["rows"]
     mlp = P.MegaNeRFModel.synthetic(data_dim=12, n_clusters=8,
                                     need_appearance_embedding=True,
                                     grid_dim=(2, 4), device="cpu")
     _, plain = stop(mlp)
+    assert "mlp_fused_rows" not in plain
     assert counters["host_syncs"] == plain["host_syncs"]
     assert counters["mlp_queries"] == plain["mlp_queries"]
 
