@@ -47,9 +47,9 @@ shapes of the main paths, and drives both paths of the port:
   frames against fresh ones), the turbo map (parked within 1e-3 of phase
   4's frame with fewer march steps, then an orbit against fresh turbo
   frames) and chunk-exact budgets (within 1e-6 of phase 4's frame); the
-  device-fallback frame and the stride-2 motion frame run under sync
-  debug mode "error"; then kernel A's gated launch, closed and taken,
-  against its plain version;
+  device-fallback frame (one gated launch a non-empty segment, timed)
+  and the stride-2 motion frame run under sync debug mode "error"; then
+  kernel A's gated launch, closed and taken, against its plain version;
 * the rest of the user-facing path (phase 20): foveated frames at f = 4
   and 2 against f = 1 on ``benchmarks/foveated1080p.py``'s protocol (the
   centre window against the f = 1 frame, the periphery block-constant),
@@ -148,7 +148,7 @@ shapes of the main paths, and drives both paths of the port:
   plain ms and cuBLAS's ``baddbmm`` + ``relu_`` on the same operands; the
   whole forward both ways; a guided stop with the model on the main path
   (collect C, the query's chunked route through I, compositor D) on the
-  card against the CPU's, ``mlp_fused_rows`` equal to ``mlp_rows``.
+  card against the CPU's, kernel I launched once a layer a query.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.  It
@@ -1823,19 +1823,34 @@ def motion_phase(P, kernels, dev, voxel_ref, report):
         f"{max(p['err'] for p in poses):.3e}; poses {poses}")
     v.render(fetch=False)
     check(v._ray_order is not None, "no ray order after the orbit")
-    out = uncounted(kernels, lambda: no_host_sync(
-        lambda: P.render_frame_fast_segmented(
+    def fallback_frame():
+        return P.render_frame_fast_segmented(
             tree, v._leaf_map, v.camera, v.options, order=v._ray_order,
             segments=tuple(starved), chunk_size=cs,
             skip_table=v._skip_table, device_fallback=True,
-            return_hints="packed")))
+            return_hints="packed")
+
+    def gated_launches():
+        before = kernels.LAUNCHES["march_gated"]
+        return no_host_sync(fallback_frame), \
+            kernels.LAUNCHES["march_gated"] - before
+    out, n_gated = uncounted(kernels, gated_launches)
     err = float((out[0] - fresh(v)).abs().max())
     check(bool(out[1].any()) and int(out[2]) == 0 and err <= 1e-6,
           f"the sync-free device_fallback frame: overflow {out[1].tolist()}, "
           f"fb {int(out[2])}, max abs diff {err}")
+    n_seg = sum(1 for c, _ in accel.segment_chunks(
+        -(-WIDTH * HEIGHT // cs), starved, n_rays=WIDTH * HEIGHT,
+        chunk_size=cs) if c)
+    check(n_gated == n_seg, f"the device_fallback frame made {n_gated} "
+          f"gated launches for {n_seg} non-empty segments")
+    fb_rounds = sorted(uncounted(kernels, lambda: cuda_ms(
+        fallback_frame, N_FRAMES)) for _ in range(ROUNDS))
     log(f"device_fallback frame under sync debug mode 'error': no host "
         f"sync; seg_overflow {out[1].tolist()}, fb_overflow 0, max abs diff "
-        f"{err:.3e} against a fresh frame")
+        f"{err:.3e} against a fresh frame; {n_gated} gated launches (one a "
+        f"non-empty segment); {fb_rounds[ROUNDS // 2]:.3f} ms/frame (rounds "
+        f"{[round(r, 3) for r in fb_rounds]})")
     fallback_order = v._ray_order
     del v, out
 
@@ -3348,13 +3363,20 @@ def fallback_path(P, kernels, dev, sc):
         torch.as_tensor(model.min_position, device=dev),
         torch.as_tensor(model.range, device=dev), opt,
         guided._budget(int(ns.sum())))
-    a, a_ms, _ = median3(lambda: PM.query_grouped(model.params, cids, x))
+    before = kernels.LAUNCHES["mlp_gemm"]
+    a, a_ms, a_runs = median3(lambda: PM.query_grouped(model.params, cids, x))
+    n_i = kernels.LAUNCHES["mlp_gemm"] - before
+    check(isinstance(model.params, PM.MLPParams) and n_i > 0
+          and n_i % (3 * model.params.n_layers) == 0,
+          f"the Linear/ReLU query launched kernel I {n_i} times in 3 runs "
+          f"of {model.params.n_layers} layers")
     b, b_ms, _ = median3(lambda: PM._query_grouped(model.params, cids, x))
     err_q = float((a - b).abs().max())
     check(err_q <= 1e-4, f"_query_grouped differs by {err_q}")
     log(f"phase 21 models: _query_grouped (ragged_dot reference) "
-        f"{b_ms:.3f} ms beside query_grouped {a_ms:.3f} ms on {x.shape[0]} "
-        f"samples, within {err_q:.1e}")
+        f"{b_ms:.3f} ms beside query_grouped {a_ms:.3f} ms (runs "
+        f"{[round(r, 3) for r in a_runs]}; kernel I {n_i // 3} launches a "
+        f"query) on {x.shape[0]} samples, within {err_q:.1e}")
     return host_ms, conv_ms
 
 
@@ -5140,8 +5162,7 @@ def model_phase(P, kernels, dev, report):
     with the model on ``d11_guided``'s path (collect C, the query's
     chunked route through kernel I, compositor D) on the card against the
     CPU's, its launches counted from a reset just before the stop's
-    frame, ``mlp_fused_rows`` equal to ``mlp_rows``.  Returns the stop's
-    launches."""
+    frame, kernel I once a layer a query.  Returns the stop's launches."""
     from torch.profiler import ProfilerActivity, profile
     from mega_nerf_viewer_tpu_torch.models import meganerf as PM
     from mega_nerf_viewer_tpu_torch.utils import profiling
@@ -5226,15 +5247,15 @@ def model_phase(P, kernels, dev, report):
 
     # the whole forward of the block, both ways
     kernels.reset_launch_counts()
-    fwd = PM._nerf_forward(params, x, cids)
+    fwd = params.forward(x, cids)
     check(kernels.LAUNCHES["mlp_gemm"] == params.n_layers + 4,
           f"forward launches {kernels.LAUNCHES}")
     with plain_products(PM):
-        fwd_p = PM._nerf_forward(params, x, cids)
+        fwd_p = params.forward(x, cids)
     err = (fwd - fwd_p).abs()
-    fwd_ms = cuda_ms(lambda: PM._nerf_forward(params, x, cids), 3)
+    fwd_ms = cuda_ms(lambda: params.forward(x, cids), 3)
     with plain_products(PM):
-        fwd_plain_ms = cuda_ms(lambda: PM._nerf_forward(params, x, cids), 2)
+        fwd_plain_ms = cuda_ms(lambda: params.forward(x, cids), 2)
     log(f"phase 28 forward of one block: {fwd_ms:.3f} ms (plain "
         f"{fwd_plain_ms:.3f} ms); all 13 columns max abs diff "
         f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
@@ -5291,17 +5312,20 @@ def model_phase(P, kernels, dev, report):
     err = float((frames[0] - frames[1]).abs().max())
     log(f"phase 28 guided stop 320x180 with the model on the shell: card "
         f"vs CPU max abs diff {err:.3e}; query routes {routes}, mlp_rows "
-        f"{counters.get('mlp_rows')}, mlp_fused_rows "
-        f"{counters.get('mlp_fused_rows')}; launches {launches}; "
+        f"{counters.get('mlp_rows')}; launches {launches}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     check(routes == ["chunked"], f"the stop's queries took {routes}")
     check(min(launches[k] for k in ("collect", "compact_composite",
                                     "mlp_gemm")) > 0
           and launches["exact_collect"] == launches["padded_composite"] == 0,
           f"the stop left the main path: {launches}")
-    check(counters.get("mlp_rows", 0) > 0 and counters.get(
-        "mlp_fused_rows") == counters["mlp_rows"],
-        f"fused rows {counters}")
+    # each query's rows fit one block of the chunked forward: one launch
+    # of kernel I a layer a query
+    check(0 < counters.get("mlp_rows", 0) <= PM.BLOCK_ROWS
+          and launches["mlp_gemm"] == (params.n_layers + 4)
+          * counters["mlp_queries"],
+          f"kernel I's launches {launches['mlp_gemm']} for counters "
+          f"{counters}")
     check(err <= 1e-4, f"guided stop card vs CPU differs by {err}")
     return launches
 

@@ -35,7 +35,6 @@ from pathlib import Path
 
 import torch
 
-from .utils import profiling
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -699,15 +698,14 @@ def check_mlp_gemm(a, w, b, cids, a2=None, table=None, ids=None,
 
 
 def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
-             col=0, counter=None):
+             col=0):
     """Launch the fused per-cluster product (csrc/mlp_gemm.cu): for each
     group g of rows, ``act(cat[a, second] W[c] + b[c])`` with ``c =
     cids[g]``, ``act`` ReLU or none, the second source ``a2``'s rows or
     the table's rows ``table[c, clamp(int(ids))]``; a source with a leading
     1 is shared by every group.  Writes columns ``col ..`` of ``out`` and
-    returns it (a new f32 [G, n, n_out] when ``out`` is None).  A launch
-    adds its G x n rows to the profiling counter ``counter`` when one is
-    named.  See :func:`check_mlp_gemm`."""
+    returns it (a new f32 [G, n, n_out] when ``out`` is None).  See
+    :func:`check_mlp_gemm`."""
     G, n, k1, k, n_out = check_mlp_gemm(a, w, b, cids, a2, table, ids, out,
                                         col)
     dev = _cuda_device(a)
@@ -741,8 +739,6 @@ def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
             _stream(dev))
     _raise_on(err, "mlp_gemm")
     LAUNCHES["mlp_gemm"] += 1
-    if counter is not None:
-        profiling.count(counter, G * n)
     return out
 
 

@@ -6,13 +6,11 @@ the reference's LibTorch model layer (``src/renderer/cuda_renderer.cpp:
 a TorchScript module per spatial cluster; here the submodules' weights
 are converted once into stacked weights with one leading cluster axis and
 inference is batched matrix products, in full f32 (TF32 off) because the
-reference is f32.  A Linear/ReLU stack's products are plain PyTorch
-(``torch.bmm``, see :func:`_f32_matmul`), as the JAX package leaves them
-to XLA outside any Pallas kernel.  Mega-NeRF's ``NeRF`` runs each layer as
-one :func:`mlp_gemm`: on the card the port's fused product kernel
-(``csrc/mlp_gemm.cu``), which reads each group's cluster weights in place
-and does the bias, the ReLU and the concatenations inside the product;
-its plain version on the CPU.
+reference is f32.  Both parameter kinds have one ``forward(x, cids,
+out=None)`` that runs each layer as one :func:`mlp_gemm`: on the card the
+port's fused product kernel (``csrc/mlp_gemm.cu``), which reads each
+group's cluster weights in place and does the bias, the ReLU and the
+concatenations inside the product; its plain version on the CPU.
 
 Container contract (reference ``cuda_renderer.cpp:518-543``):
   * attrs ``grid_dim`` (int[2]), ``min_position`` / ``max_position``
@@ -48,11 +46,9 @@ Cluster id for a point is a 2-D cell over (y, z):
 ``g1 * grid_dim[1] + g2`` (reference ``rt_core.cuh:541-549``).
 
 The query records the span ``model.query`` (``route`` ``chunked`` or
-``all``, ``rows`` the rows handed in) and the counters ``mlp_queries``,
-``mlp_rows`` (rows the forward computed, pad rows included) and
-``mlp_fused_rows`` (those of them the card's fused product kernel
-computed, counted where its forward's last layer launches; none on the
-CPU) while a profiler session runs (``utils/profiling.py``);
+``all``, ``rows`` the rows handed in) and the counters ``mlp_queries`` and
+``mlp_rows`` (rows the forward computed, pad rows included) while a
+profiler session runs (``utils/profiling.py``);
 ``mlp_samples`` (real samples) is counted where they are known:
 :meth:`MegaNeRFModel.query_device` and the guided fast path.
 """
@@ -121,6 +117,23 @@ class MLPParams(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.w0.device
+
+    def forward(self, x: torch.Tensor, cids: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The stack on ``G = len(cids)`` groups of rows, group ``g``
+        cluster ``cids[g]``'s (i64).  ``x`` f32 [1 or G, n, in] (a leading
+        1 is shared by every group).  Each layer is one :func:`mlp_gemm`,
+        a skip layer reading ``cat[h, x]`` as two sources, every layer but
+        the last with the ReLU.  Returns f32 [G, n, out], into ``out`` when
+        given."""
+        h = x
+        L = self.n_layers
+        for l in range(L):
+            h = mlp_gemm(h, getattr(self, f"w{l}"), getattr(self, f"b{l}"),
+                         cids, l < L - 1,
+                         a2=x if l in self.skips else None,
+                         out=out if l == L - 1 else None)
+        return h
 
 
 def params_from_numpy(weights, biases, skips=(), device=None) -> MLPParams:
@@ -208,6 +221,36 @@ class NeRFParams(nn.Module):
         """(weight, bias) of the head ``k`` of :attr:`HEADS`."""
         return getattr(self, f"{k}_w"), getattr(self, f"{k}_b")
 
+    def forward(self, x: torch.Tensor, cids: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The model on ``G = len(cids)`` groups of rows, group ``g``
+        cluster ``cids[g]``'s (i64).  ``x`` f32 [1 or G, n, 4] (a leading 1
+        is shared by every group).  Each layer is one :func:`mlp_gemm`: the
+        skip reads ``[g, h]`` and the colour branch ``[f, appearance row]``
+        as two sources, and the rgb and sigma heads write columns 0.. and
+        the last of the output.  Returns f32 [G, n, out], into ``out`` when
+        given."""
+        G, n = cids.shape[0], x.shape[1]
+        g = encode_positions(x[..., :3], self.freq_bands)
+        if out is None:
+            out = g.new_empty((G, n, self.output_dim))
+        h = g
+        for l in range(self.n_layers):
+            w, b = self.trunk(l)
+            h = mlp_gemm(g, w, b, cids, True, a2=h) if l in self.skips \
+                else mlp_gemm(h, w, b, cids, True)
+        relu_sigma = self.sigma_activation == "relu"
+        mlp_gemm(h, *self.head("sigma"), cids, relu_sigma, out=out,
+                 col=out.shape[2] - 1)
+        if not relu_sigma:
+            sigma = out[..., -1:]
+            sigma.copy_(torch.nn.functional.softplus(sigma - 1.0))
+        f = mlp_gemm(h, *self.head("final"), cids, False)
+        d = mlp_gemm(f, *self.head("dir_a"), cids, True,
+                     table=self.appearance, ids=x[..., 3])
+        mlp_gemm(d, *self.head("rgb"), cids, False, out=out, col=0)
+        return out
+
 
 def nerf_params_from_numpy(arrays: dict, skips, sigma_activation="relu",
                            device=None) -> NeRFParams:
@@ -237,7 +280,7 @@ def encode_positions(p: torch.Tensor, freq_bands: torch.Tensor
 
 
 def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
-             col=0, counter=None):
+             col=0):
     """One fused product of the model's forward, on the rows of ``G =
     len(cids)`` groups, group ``g`` cluster ``cids[g]``'s: ``act(cat[a,
     second] W[c] + b[c])``, ``act`` ReLU or none, with the second source
@@ -246,22 +289,20 @@ def mlp_gemm(a, w, b, cids, relu, a2=None, table=None, ids=None, out=None,
     shared by every group.  The result goes to columns ``col ..`` of
     ``out`` [G, n, ldo] (a new [G, n, n_out] when ``out`` is None), which
     is returned.  The CUDA kernel (``kernels.mlp_gemm``) for CUDA tensors,
-    which adds its rows to the profiling counter ``counter`` when one is
-    named; the plain version for CPU tensors, which counts nothing; shapes
-    as ``kernels.check_mlp_gemm``."""
+    the plain version for CPU tensors; shapes as
+    ``kernels.check_mlp_gemm``."""
     if a.device.type != "cpu":
         return kernels.mlp_gemm(a, w, b, cids, relu, a2, table, ids, out,
-                                col, counter)
+                                col)
     kernels.check_mlp_gemm(a, w, b, cids, a2, table, ids, out, col)
     return mlp_gemm_reference(a, w, b, cids, relu, a2, table, ids, out, col)
 
 
 def mlp_gemm_reference(a, w, b, cids, relu, a2=None, table=None, ids=None,
-                       out=None, col=0, counter=None):
+                       out=None, col=0):
     """:func:`mlp_gemm` as plain torch ops: the groups' weights and biases
     gathered, the sources concatenated, one batched product with the bias
-    (TF32 off), then the ReLU.  ``counter`` is taken and not counted: no
-    kernel ran."""
+    (TF32 off), then the ReLU."""
     G = cids.shape[0]
     src = [a.expand(G, -1, -1)]
     if a2 is not None:
@@ -282,146 +323,40 @@ def mlp_gemm_reference(a, w, b, cids, relu, a2=None, table=None, ids=None,
     return out
 
 
-def _nerf_forward(params: NeRFParams, x: torch.Tensor, cids: torch.Tensor,
-                  out: Optional[torch.Tensor] = None,
-                  counter: Optional[str] = None) -> torch.Tensor:
-    """:class:`NeRFParams`' forward on ``G = len(cids)`` groups of rows,
-    group ``g`` cluster ``cids[g]``'s (i64).  ``x`` f32 [G or 1, n, 4] (a
-    leading 1 is shared by every group).  Each layer is one
-    :func:`mlp_gemm`: the skip reads ``[g, h]`` and the colour branch
-    ``[f, appearance row]`` as two sources, and the rgb and sigma heads
-    write columns 0.. and the last of the output; the rgb head's launch,
-    the last, adds the G x n rows to the profiling counter ``counter``
-    when one is named.  Returns f32 [G, n, out], into ``out`` when
-    given."""
-    G, n = cids.shape[0], x.shape[1]
-    g = encode_positions(x[..., :3], params.freq_bands)
-    if out is None:
-        out = g.new_empty((G, n, params.output_dim))
-    h = g
-    for l in range(params.n_layers):
-        w, b = params.trunk(l)
-        h = mlp_gemm(g, w, b, cids, True, a2=h) if l in params.skips \
-            else mlp_gemm(h, w, b, cids, True)
-    relu_sigma = params.sigma_activation == "relu"
-    mlp_gemm(h, *params.head("sigma"), cids, relu_sigma, out=out,
-             col=out.shape[2] - 1)
-    if not relu_sigma:
-        sigma = out[..., -1:]
-        sigma.copy_(torch.nn.functional.softplus(sigma - 1.0))
-    f = mlp_gemm(h, *params.head("final"), cids, False)
-    d = mlp_gemm(f, *params.head("dir_a"), cids, True,
-                 table=params.appearance, ids=x[..., 3])
-    mlp_gemm(d, *params.head("rgb"), cids, False, out=out, col=0,
-             counter=counter)
-    return out
+def mlp_forward(params, cluster: int, x: torch.Tensor) -> torch.Tensor:
+    """Forward ``x [n, in]`` through the model of one ``cluster`` (either
+    parameter kind)."""
+    cids = torch.full((1,), cluster, dtype=torch.int64, device=x.device)
+    return params.forward(x.contiguous()[None], cids)[0]
 
 
-def _forward_one(params, cluster: int, x: torch.Tensor) -> torch.Tensor:
-    """One cluster's forward on ``x`` [n, in], either parameter kind."""
-    if isinstance(params, NeRFParams):
-        cids = torch.full((1,), cluster, dtype=torch.int64, device=x.device)
-        return _nerf_forward(params, x[None], cids)[0]
-    return mlp_forward(params, cluster, x)
-
-
-def _forward_all(params, cluster_ids: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Every cluster on every sample, then the select (either kind)."""
-    if not isinstance(params, NeRFParams):
-        return mlp_forward_all(params, cluster_ids, x)
-    h = _nerf_forward(params, x[None], torch.arange(params.n_clusters,
-                                                    device=x.device),
-                      counter="mlp_fused_rows")
+def mlp_forward_all(params, cluster_ids: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Every cluster's model on every sample, then a select by
+    ``cluster_ids`` (the small-batch route: C x the products, no sort)."""
+    h = params.forward(x.contiguous()[None],
+                       torch.arange(params.n_clusters, device=x.device))
     return h[cluster_ids.long(), torch.arange(x.shape[0], device=x.device)]
 
 
-def _forward_chunked(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
-                     chunk: int) -> torch.Tensor:
-    """The cluster-pure chunked forward (either kind; see
-    :func:`mlp_forward_chunked`) in blocks of at most :data:`BLOCK_ROWS`
-    rows, written into one output."""
-    nb = x_al.shape[0] // chunk
-    per = max(1, BLOCK_ROWS // chunk)
-    if isinstance(params, NeRFParams):
-        out = x_al.new_empty((nb, chunk, params.output_dim))
-        x = x_al.reshape(nb, chunk, x_al.shape[-1])
-        cids = chunk_cids.long().contiguous()
-        for b0 in range(0, nb, per):
-            b1 = min(nb, b0 + per)
-            _nerf_forward(params, x[b0:b1], cids[b0:b1], out[b0:b1],
-                          "mlp_fused_rows")
-        return out.reshape(nb * chunk, -1)
-    out = None
-    for b0 in range(0, nb, per):
-        b1 = min(nb, b0 + per)
-        h = mlp_forward_chunked(params, x_al[b0 * chunk:b1 * chunk],
-                                chunk_cids[b0:b1], chunk)
-        if out is None:
-            if b1 == nb:
-                return h
-            out = h.new_empty((nb * chunk, h.shape[1]))
-        out[b0 * chunk:b1 * chunk] = h
-    return out
-
-
-def mlp_forward(params: MLPParams, cluster: int,
-                x: torch.Tensor) -> torch.Tensor:
-    """Forward ``x [n, in]`` through the MLP of one ``cluster``."""
-    h = x
-    L = params.n_layers
-    with _f32_matmul():
-        for l in range(L):
-            if l in params.skips:
-                h = torch.cat([h, x], dim=-1)
-            h = h @ params.weights[l][cluster] + params.biases[l][cluster]
-            if l < L - 1:
-                h = torch.relu(h)
-    return h
-
-
-def mlp_forward_all(params: MLPParams, cluster_ids: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
-    """Every cluster's MLP on every sample, then a select by
-    ``cluster_ids`` (the small-batch route: C x the products, no sort)."""
-    C = params.n_clusters
-    x0 = x.unsqueeze(0).expand(C, -1, -1)
-    h = x0
-    L = params.n_layers
-    with _f32_matmul():
-        for l in range(L):
-            if l in params.skips:
-                h = torch.cat([h, x0], dim=-1)
-            h = torch.bmm(h, params.weights[l]) + params.biases[l][:, None]
-            if l < L - 1:
-                h = torch.relu(h)
-    n = x.shape[0]
-    return h[cluster_ids.long(), torch.arange(n, device=x.device)]
-
-
-def mlp_forward_chunked(params: MLPParams, x_al: torch.Tensor,
-                        chunk_cids: torch.Tensor,
+def mlp_forward_chunked(params, x_al: torch.Tensor, chunk_cids: torch.Tensor,
                         chunk: int) -> torch.Tensor:
-    """Cluster-pure chunked batched MLP forward (``meganerf.py:142-179``).
+    """Cluster-pure chunked batched forward (``meganerf.py:142-179``).
 
     ``x_al`` f32 [nb*chunk, in]: cluster-sorted samples, each cluster's
     segment padded to a ``chunk`` multiple, so every chunk is one
-    cluster's (``chunk_cids`` [nb]).  One ``torch.bmm`` per layer with
-    per-chunk gathered weights.  Pad rows hold garbage."""
+    cluster's (``chunk_cids`` [nb]).  The forward runs in blocks of at most
+    :data:`BLOCK_ROWS` rows (whole chunks), written into one output; each
+    chunk reads its cluster's weights.  Pad rows hold garbage."""
     nb = x_al.shape[0] // chunk
-    h = x_al.reshape(nb, chunk, x_al.shape[-1])
-    x0 = h
-    cids = chunk_cids.long()
-    L = params.n_layers
-    with _f32_matmul():
-        for l in range(L):
-            if l in params.skips:
-                h = torch.cat([h, x0], dim=-1)
-            h = torch.bmm(h, params.weights[l][cids]) \
-                + params.biases[l][cids][:, None, :]
-            if l < L - 1:
-                h = torch.relu(h)
-    return h.reshape(nb * chunk, -1)
+    x = x_al.reshape(nb, chunk, x_al.shape[-1]).contiguous()
+    cids = chunk_cids.long().contiguous()
+    out = x_al.new_empty((nb, chunk, params.output_dim))
+    per = max(1, BLOCK_ROWS // chunk)
+    for b0 in range(0, nb, per):
+        b1 = min(nb, b0 + per)
+        params.forward(x[b0:b1], cids[b0:b1], out[b0:b1])
+    return out.reshape(nb * chunk, -1)
 
 
 def mlp_forward_grouped(params: MLPParams, sorted_x: torch.Tensor,
@@ -498,7 +433,7 @@ def _query_chunked(params: MLPParams, cluster_ids: torch.Tensor,
     x_al = sorted_x[k.clamp(0, n - 1)]
     chunk_cids = c_s.reshape(-1, chunk)[:, 0]
     profiling.count("mlp_rows", P_al)
-    out_al = _forward_chunked(params, x_al, chunk_cids, chunk)
+    out_al = mlp_forward_chunked(params, x_al, chunk_cids, chunk)
     # aligned slot of sorted rank r, written back to the caller's order
     r = torch.arange(n, device=dev)
     c_r = (torch.searchsorted(seg_start, r, right=True) - 1).clamp(0, C - 1)
@@ -513,9 +448,8 @@ def query_grouped(params, cluster_ids: torch.Tensor,
     """Shape-adaptive grouped dispatch: the chunked route for 2^16 samples
     or more, the all-clusters select below (``meganerf.py:231-240``).
     ``params`` is either kind (:class:`MLPParams`, :class:`NeRFParams`).
-    The span ``model.query`` and the counters ``mlp_queries``,
-    ``mlp_rows`` and ``mlp_fused_rows`` (kernel I's rows, on the card) come
-    from shapes the host holds."""
+    The span ``model.query`` and the counters ``mlp_queries`` and
+    ``mlp_rows`` come from shapes the host holds."""
     n = x.shape[0]
     route = "chunked" if n >= CHUNKED_MIN else "all"
     with profiling.annotate("model.query", route=route, rows=n):
@@ -524,7 +458,7 @@ def query_grouped(params, cluster_ids: torch.Tensor,
             return _query_chunked(params, cluster_ids, x, CHUNK)
         profiling.count("mlp_rows", params.n_clusters * n)
         ids = cluster_ids.long().clamp(0, params.n_clusters - 1)
-        return _forward_all(params, ids, x)
+        return mlp_forward_all(params, ids, x)
 
 
 def cluster_ids_from_yz(y, z, grid_dim, min_position, pos_range):
@@ -614,7 +548,7 @@ class MegaNeRFModel:
         if self._torch_modules is not None:
             with torch.inference_mode():
                 return self._torch_modules[cluster](x, False).float()
-        return _forward_one(self.params, cluster, x)
+        return mlp_forward(self.params, cluster, x)
 
     def query(self, cluster_ids, samples, nerf_batch_size: int = 1024,
               batch_mult: int = 1) -> torch.Tensor:
@@ -818,7 +752,7 @@ def _replays(params, modules, x: torch.Tensor) -> bool:
         # autograd on may then refuse inference tensors
         with torch.no_grad():
             want = m(x, False)
-        got = _forward_one(params, c, x)
+        got = mlp_forward(params, c, x)
         if want.shape != got.shape or not torch.allclose(
                 want, got, rtol=1e-4, atol=1e-4):
             return False

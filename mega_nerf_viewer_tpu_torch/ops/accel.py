@@ -17,11 +17,12 @@ leaf-map voxel frame:
     batched torch ops with the record buffer and deferred shading.
   * The record-sorted segmented frame (:func:`render_frame_fast_segmented`)
     sorts rays by the previous frame's hints (:func:`order_from_hints`)
-    and marches each segment with its own ``max_dense`` budget; with
-    ``device_fallback`` a gated launch of the march re-marches the whole
-    frame at budget 128 when a segment overflowed, decided on the card;
-    :func:`repair_segments` re-marches only the overflowed segments of a
-    queued frame, after the host read its flags (the sync policy's redo).
+    and marches each segment with its own ``max_dense`` budget.  An
+    overflowed segment is re-marched alone at budget 128 by a gated launch
+    of the march (:func:`_remarch_segments`): with ``device_fallback``
+    every segment's launch is decided on the card, and
+    :func:`repair_segments` launches only the segments whose flags the
+    host read (the sync policy's redo).
   * The re-hint motion frame (:func:`render_frame_motion`): a budget-0
     count march over a stale order measures each ray's record need, the
     rays are sorted by it and the segmented frame marches at steady
@@ -581,11 +582,12 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
     pixel order, or, as ``"packed"``, one ``hints_packed`` array in
     :func:`pack_hints` layout (``accel.py:708-723``, ``:821-822``).
 
-    ``device_fallback`` (``accel.py:735-770``): when a segment overflowed,
-    the whole sorted frame is marched again at budget ``_FALLBACK_MD``,
-    into the segments' buffers, by a gated launch of the march that reads
-    the overflow counts on the card; ``fb_overflow`` counts the rays that
-    overflowed even that.  Nothing crosses to the host.  ``on_flags``, if
+    ``device_fallback`` (``accel.py:735-770``): each overflowed segment is
+    marched again at budget ``_FALLBACK_MD``, into its slice of the
+    buffers, by a gated launch of the march that reads the segment's
+    overflow count on the card (:func:`_remarch_segments`);
+    ``fb_overflow`` counts the rays that overflowed even that.  Nothing
+    crosses to the host.  ``on_flags``, if
     given, is called with a dict of the frame's overflow counts (device
     tensors) as soon as the marches are queued, before the unpermute and
     the composite.  ``repair`` adds the frame's :class:`FrameRepair`
@@ -636,11 +638,13 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
         bufs = tuple(torch.cat(lst, 0) for lst in parts if lst)
         seg_overflow = torch.stack(ovs)
         flags = dict(seg_overflow=seg_overflow)
+        frame = FrameRepair(tree, leaf_map, opt, m, bufs, skips,
+                            seg_overflow, tuple(seg_counts), chunk_size, inv,
+                            group, camera.width, camera.height)
         if device_fallback:
             with profiling.annotate("frame.fallback"):
-                flags["fb_overflow"] = fused_march(
-                    tree, leaf_map, m, _FALLBACK_MD, chunk_size, votes,
-                    gate=seg_overflow, into=bufs)[1]
+                flags["fb_overflow"] = _remarch_segments(frame).sum(
+                    dtype=torch.int32)
         if on_flags is not None:
             on_flags(flags)
         ret = _assemble(bufs, skips, inv, R, opt, group=group,
@@ -648,10 +652,7 @@ def _frame_core(tree: N3Tree, leaf_map: LeafMap,
                         return_hints=return_hints)
         ret.update(flags)
         if repair:
-            ret["repair"] = FrameRepair(
-                tree, leaf_map, opt, m, bufs, skips, seg_overflow,
-                tuple(seg_counts), chunk_size, inv, group, camera.width,
-                camera.height)
+            ret["repair"] = frame
     return ret
 
 
@@ -686,7 +687,7 @@ def _assemble(bufs: tuple, skips: torch.Tensor, inv: Optional[torch.Tensor],
 
 
 class FrameRepair(NamedTuple):
-    """What :func:`repair_segments` needs to re-march part of a queued
+    """What :func:`_remarch_segments` needs to re-march part of a queued
     segmented frame: the padded march inputs ``m`` and the frame's
     concatenated march buffers ``bufs`` (out, steps, nrec[, split_vote,
     sample_vote]), both in ``perm`` order, the prepass ``skips``, the
@@ -706,6 +707,31 @@ class FrameRepair(NamedTuple):
     height: int
 
 
+def _remarch_segments(r: FrameRepair, flagged=None) -> torch.Tensor:
+    """Re-march overflowed segments of the frame ``r`` at the escalation
+    protocol's ceiling (``_FALLBACK_MD``): each non-empty segment's slice
+    of ``r.m`` marches by the gated launch, gated on the segment's own
+    count on the card, into its slice of ``r.bufs``; ``flagged``, the
+    host's copy of the counts, limits the launches to the segments it
+    flags.  A ray's pixel, steps, record count, skips and votes do not
+    depend on its budget once it fits, and no budget exceeds the ceiling,
+    so the frame becomes that of one march at the ceiling.  Returns the
+    per-segment counts [n_segments] i32: a launched segment's rays beyond
+    even the ceiling, the others' own count."""
+    votes = _vote_knobs(r.opt) if len(r.bufs) > 3 else None
+    counts = list(r.seg_overflow.unbind())
+    off = 0
+    for i, (c_chunks, _) in enumerate(r.seg_counts):
+        sl = slice(off, off + c_chunks * r.chunk_size)
+        off = sl.stop
+        if c_chunks and (flagged is None or flagged[i]):
+            counts[i] = fused_march(
+                r.tree, r.leaf_map, slice_rays(r.m, sl), _FALLBACK_MD,
+                r.chunk_size, votes, gate=r.seg_overflow[i:i + 1],
+                into=tuple(b[sl] for b in r.bufs))[1]
+    return torch.stack(counts)
+
+
 def repair_segments(repair: FrameRepair, ov) -> tuple:
     """Re-march each overflowed segment of a queued segmented frame at the
     escalation protocol's ceiling (``_FALLBACK_MD``), then assemble the
@@ -713,13 +739,11 @@ def repair_segments(repair: FrameRepair, ov) -> tuple:
 
     ``repair`` is the frame's :class:`FrameRepair`
     (:func:`render_frame_fast_segmented`'s ``return_repair``), ``ov`` the
-    host's copy of its per-segment overflow counts.  Each flagged segment's
-    slice of the inputs marches by the gated launch, gated on the segment's
-    own count, into its slice of the frame's buffers; the other segments
-    are not touched.  A ray's pixel, steps, record count, skips and votes
-    do not depend on its budget once it fits, so when the count returned
-    is 0 the frame and its hints are those of the frame at any one budget
-    that every ray fits: the hint frame's.
+    host's copy of its per-segment overflow counts: only the segments it
+    flags are launched (:func:`_remarch_segments`), the others are not
+    touched.  When the count returned is 0 the frame and its hints are
+    those of the frame at any one budget that every ray fits: the hint
+    frame's.
 
     Returns ((img [H, W, 4], seg_overflow [n_segments] i32[, split_vote,
     sample_vote]): the segmented frame's layout, in pixel order, without
@@ -729,21 +753,9 @@ def repair_segments(repair: FrameRepair, ov) -> tuple:
     r = repair
     R = r.inv.shape[0]
     need_votes = len(r.bufs) > 3
-    votes = _vote_knobs(r.opt) if need_votes else None
-    seg_ov = list(r.seg_overflow.unbind())
-    n_rays = 0
-    off = 0
-    for i, (c_chunks, _) in enumerate(r.seg_counts):
-        sl = slice(off, off + c_chunks * r.chunk_size)
-        off = sl.stop
-        if c_chunks and ov[i]:
-            seg_ov[i] = fused_march(
-                r.tree, r.leaf_map, slice_rays(r.m, sl), _FALLBACK_MD,
-                r.chunk_size, votes, gate=r.seg_overflow[i:i + 1],
-                into=tuple(b[sl] for b in r.bufs))[1]
-            n_rays += sl.stop - sl.start
-    profiling.count("repaired_rays", n_rays)
-    seg_ov = torch.stack(seg_ov)
+    seg_ov = _remarch_segments(r, ov)
+    profiling.count("repaired_rays", sum(
+        c * r.chunk_size for (c, _), f in zip(r.seg_counts, ov) if f))
     res = _assemble(r.bufs, r.skips, r.inv, R, r.opt, group=r.group,
                     sorted_output=False, need_votes=need_votes,
                     return_hints="packed")
@@ -1158,8 +1170,8 @@ def render_frame_fast_segmented(tree: N3Tree, leaf_map: LeafMap,
     segment's overflow count so the caller can escalate.
     ``seg_counts`` = ((n_chunks, max_dense), ...) from
     :func:`seg_counts_from_hints` gives the chunk layout directly, and
-    ``segments`` is then ignored.  ``device_fallback`` re-marches the whole
-    frame at budget 128 on the card when a segment overflowed (see
+    ``segments`` is then ignored.  ``device_fallback`` re-marches each
+    overflowed segment at budget 128, decided on the card (see
     :func:`_frame_core`), so the frame is right without a host check;
     ``fb_overflow`` counts the rays beyond even that.  ``on_flags``: see
     :func:`_frame_core`.  ``return_repair`` adds, last, the frame's

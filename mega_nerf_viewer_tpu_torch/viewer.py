@@ -26,9 +26,11 @@ from the previous frame's packed hints, and, when a segment overflowed,
   * ``"async"``: the frame returns as it is, and the next frame reads the
     flags and escalates (a moving frame may show a truncated band of up to
     ``motion_overflow_tolerance`` of its rays);
-  * ``"device"``: the frame re-marches itself at budget 128 by a gated
-    launch of the march that reads the flags on the card, and the next
-    frame reads them to retune the budgets.
+  * ``"device"``: the frame re-marches its overflowed segments at budget
+    128 by one gated launch of the march a segment, each reading its
+    segment's flag on the card (``accel.render_frame_fast_segmented``'s
+    ``device_fallback``), and the next frame reads the flags to retune the
+    budgets.
 
 Under the async and device policies the flags cross to the host in a copy
 issued right after the frame's march, into pinned memory, with an event

@@ -252,3 +252,32 @@ def test_on_flags_sees_the_frame_counts(scene):
                                                "fb_overflow"}
     assert torch.equal(seen[0]["seg_overflow"], out[1])
     assert torch.equal(seen[0]["fb_overflow"], out[2])
+
+
+def test_device_fallback_remarches_only_the_starved_segment(
+        scene, monkeypatch):
+    """One starved segment between two that fit: the fallback marches
+    again that segment's rays alone, at the ceiling, and the frame,
+    ``fb_overflow`` and the flags are JAX's, whose fallback re-marches the
+    whole frame."""
+    s = scene
+    segs = ((0.5, 1), (0.25, 1), (0.25, 16))
+    marched = []
+    march = PA.fused_march
+
+    def spy(tree, leaf_map, m, max_dense, *a, gate=None, into=None, **k):
+        if gate is not None and bool(gate.any()):
+            marched.append((m.d.shape[0], max_dense))
+        return march(tree, leaf_map, m, max_dense, *a, gate=gate, into=into,
+                     **k)
+    monkeypatch.setattr(PA, "fused_march", spy)
+    j, p = _both(s, segs, device_fallback=True)
+    np.testing.assert_array_equal(p[1].numpy(), np.asarray(j[1]))
+    assert [bool(c) for c in p[1]] == [False, True, False]
+    assert marched == [(CS * PA.segment_chunks(
+        64 * 64 // CS, segs, n_rays=64 * 64, chunk_size=CS)[1][0],
+        PA._FALLBACK_MD)]
+    assert int(p[2]) == int(j[2]) == 0
+    assert p[2].dtype == torch.int32 and p[2].shape == ()
+    assert torch.equal(p[0], s["hint"][0])
+    assert float(np.abs(np.asarray(j[0]) - p[0].numpy()).max()) <= PIX_TOL

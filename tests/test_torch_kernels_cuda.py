@@ -646,8 +646,9 @@ def _motion_scene(dev):
 
 def test_device_fallback_frame_has_no_host_sync(cuda):
     """The device-fallback frame on starved budgets raises nothing under
-    sync debug mode "error", takes the fallback on the card and equals the
-    frame on budgets that fit."""
+    sync debug mode "error", takes the fallback on the card, one gated
+    launch a non-empty segment, and equals the frame on budgets that
+    fit."""
     tree, lm, table, cam, opt, ph = _motion_scene(cuda)
     order = accel.order_from_packed_device(ph)
     fit = P.render_frame_fast_segmented(
@@ -663,7 +664,12 @@ def test_device_fallback_frame_has_no_host_sync(cuda):
             skip_table=table, device_fallback=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert kernels.LAUNCHES["march_gated"] == before + 1
+    # one gated launch a non-empty segment, each gated on its own count
+    n_chunks = -(-96 * 80 // 512)
+    assert kernels.LAUNCHES["march_gated"] == before + sum(
+        1 for c, _ in accel.segment_chunks(
+            n_chunks, ((0.75, 0), (0.25, 1)), n_rays=96 * 80,
+            chunk_size=512) if c)
     assert bool(seg_ov.any()) and int(fb) == 0
     assert torch.equal(img, fit)
 
@@ -779,12 +785,14 @@ def test_mlp_gemm_kernel_matches_plain(cuda, case):
         assert bool((got[..., keep] == 7.0).all())
 
 
-def test_nerf_forward_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("kind", ["nerf", "mlp"])
+def test_nerf_forward_on_card_matches_cpu(cuda, kind):
     """The model's forward at Mill 19's widths through kernel I on the card
-    against its plain version on the CPU: all 13 columns of both routes of
-    ``query_grouped`` (the chunked one with a small chunk).  Profiled, the
-    card's ``mlp_fused_rows`` equals ``mlp_rows`` on both routes, and the
-    CPU counts none."""
+    against its plain version on the CPU, for both parameter kinds (a
+    ``NeRF`` and a Linear/ReLU stack with a skip): every column of both
+    routes of ``query_grouped`` (the chunked one with a small chunk).  The
+    card launches kernel I once a layer on each route, and ``mlp_rows``
+    is the CPU's."""
     from torch.profiler import ProfilerActivity, profile
     from mega_nerf_viewer_tpu_torch.models import meganerf as PM
     from mega_nerf_viewer_tpu_torch.utils import profiling
@@ -794,30 +802,46 @@ def test_nerf_forward_on_card_matches_cpu(cuda):
     def layer(i, o):
         return (rng.standard_normal((C, i, o)) * np.sqrt(2 / i),
                 rng.standard_normal((C, o)) * 0.1)
-    trunk = [layer(enc if l == 0 else W + (enc if l == 4 else 0), W)
-             for l in range(8)]
-    arrays = {"freq_bands": 2.0 ** np.arange(12), "appearance":
-              rng.standard_normal((C, 30, 48)),
-              "trunk_w": [t[0] for t in trunk],
-              "trunk_b": [t[1] for t in trunk]}
-    for k, (i, o) in {"sigma": (W, 1), "final": (W, W),
-                      "dir_a": (W + 48, 128), "rgb": (128, 12)}.items():
-        arrays[f"{k}_w"], arrays[f"{k}_b"] = layer(i, o)
+    if kind == "nerf":
+        trunk = [layer(enc if l == 0 else W + (enc if l == 4 else 0), W)
+                 for l in range(8)]
+        arrays = {"freq_bands": 2.0 ** np.arange(12), "appearance":
+                  rng.standard_normal((C, 30, 48)),
+                  "trunk_w": [t[0] for t in trunk],
+                  "trunk_b": [t[1] for t in trunk]}
+        for k, (i, o) in {"sigma": (W, 1), "final": (W, W),
+                          "dir_a": (W + 48, 128), "rgb": (128, 12)}.items():
+            arrays[f"{k}_w"], arrays[f"{k}_b"] = layer(i, o)
+
+        def make(dev):
+            return PM.nerf_params_from_numpy(arrays, (4,), device=dev)
+        per_forward = 8 + 4
+    else:
+        stack = [layer(4 if l == 0 else W + (4 if l == 4 else 0),
+                       13 if l == 7 else W) for l in range(8)]
+
+        def make(dev):
+            return PM.params_from_numpy([s[0] for s in stack],
+                                        [s[1] for s in stack], (4,),
+                                        device=dev)
+        per_forward = 8
     x = np.concatenate([rng.uniform(-1, 1, (700, 3)),
                         rng.integers(-2, 33, (700, 1))], 1).astype(np.float32)
     ids = rng.integers(0, C, 700)
-    outs, counts = [], []
+    outs, counts, launches = [], [], []
     for dev in ("cpu", cuda):
-        params = PM.nerf_params_from_numpy(arrays, (4,), device=dev)
+        params = make(dev)
         xt, it = torch.from_numpy(x).to(dev), torch.from_numpy(ids).to(dev)
+        before = kernels.LAUNCHES["mlp_gemm"]
         profiling.reset()
         with profile(activities=[ProfilerActivity.CPU]):
-            outs.append([PM._forward_all(params, it, xt).cpu(),
+            outs.append([PM.mlp_forward_all(params, it, xt).cpu(),
                          PM._query_chunked(params, it, xt, 128).cpu()])
         counts.append(profiling.recorded()[1])
         profiling.reset()
-    assert "mlp_fused_rows" not in counts[0]
-    assert counts[1]["mlp_fused_rows"] == 8 * 700 + counts[0]["mlp_rows"]
+        launches.append(kernels.LAUNCHES["mlp_gemm"] - before)
+    assert launches == [0, 2 * per_forward]
+    assert counts[1]["mlp_rows"] == counts[0]["mlp_rows"] > 700
     for a, b in zip(*outs):
         assert float((a - b).abs().max()) <= 2e-5 * max(1.0, float(
             a.abs().max()))

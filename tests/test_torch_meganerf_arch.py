@@ -194,7 +194,7 @@ def test_chunked_route_in_blocks(tmp_path, monkeypatch, kind):
 @pytest.mark.parametrize("widths", ["tiny", "mill19"])
 def test_nerf_forward_through_the_plain_product(monkeypatch, widths, act,
                                                 route):
-    """``_nerf_forward`` through the fused product's plain version
+    """``NeRFParams.forward`` through the fused product's plain version
     (``mlp_gemm_reference``, one call a layer) against the reference
     modules on all 13 columns: the chunked route at a small chunk with
     ragged cluster segments (0, 1, 37 and 90 rows), the all-clusters route,
@@ -218,7 +218,7 @@ def test_nerf_forward_through_the_plain_product(monkeypatch, widths, act,
     monkeypatch.setattr(PM, "mlp_gemm_reference",
                         lambda *a, **k: calls.append(1) or plain(*a, **k))
     got = PM._query_chunked(params, ids, x, 32) if route == "chunked" \
-        else PM._forward_all(params, ids, x)
+        else PM.mlp_forward_all(params, ids, x)
     assert len(calls) == params.n_layers + 4
     clamped = x.clone()
     clamped[:, 3].clamp_(0, APPS - 1)
@@ -311,8 +311,8 @@ def test_viewer_guided_frame_matches_the_reference_modules(mill19):
 
 def test_profiled_stop_records_the_query(mill19):
     """A profiled guided stop: ``model.query`` and the query's counters,
-    with no ``mlp_fused_rows`` (kernel I's rows) on the CPU, where the
-    plain product runs; the host syncs of the stop are those of the same
+    with no launch of kernel I on the CPU, where the plain product runs;
+    the host syncs, queries and rows of the stop are those of the same
     stop with a Linear/ReLU model."""
     def stop(model):
         v = _viewer(model)
@@ -328,18 +328,19 @@ def test_profiled_stop_records_the_query(mill19):
         profiling.reset()
         return spans, counters
 
+    launches = kernels.LAUNCHES["mlp_gemm"]
     spans, counters = stop(mill19[1])
     q = [s for s in spans if s.name == "model.query"]
     assert len(q) == counters["mlp_queries"] >= 1
     assert all(s.attrs["route"] == "all" for s in q)
     assert sum(s.attrs["rows"] for s in q) * 8 == counters["mlp_rows"]
-    assert "mlp_fused_rows" not in counters
     assert 0 < counters["mlp_samples"] <= q[-1].attrs["rows"]
     mlp = P.MegaNeRFModel.synthetic(data_dim=12, n_clusters=8,
                                     need_appearance_embedding=True,
                                     grid_dim=(2, 4), device="cpu")
     _, plain = stop(mlp)
-    assert "mlp_fused_rows" not in plain
+    assert kernels.LAUNCHES["mlp_gemm"] == launches
+    assert plain["mlp_rows"] == counters["mlp_rows"]
     assert counters["host_syncs"] == plain["host_syncs"]
     assert counters["mlp_queries"] == plain["mlp_queries"]
 

@@ -140,6 +140,44 @@ def test_forward_with_skips():
     np.testing.assert_allclose(got0.numpy(), want0, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("route", ["one", "all", "chunked"])
+def test_mlp_forward_is_one_fused_product_a_layer(monkeypatch, route):
+    """A Linear/ReLU stack runs each layer, the skip layer included, as one
+    call of the fused product (``mlp_gemm``, whose plain version runs on
+    the CPU) on every route, with JAX's outputs."""
+    rng = np.random.RandomState(5)
+    C, in_dim, h = 4, 4, 16
+    dims = [(in_dim, h), (h, h), (h + in_dim, h), (h, 6)]
+    w = [(rng.randn(C, a, b) * 0.3).astype(np.float32) for a, b in dims]
+    b = [(rng.randn(C, o) * 0.1).astype(np.float32) for _, o in dims]
+    jp = JM.MLPParams(weights=[jnp.asarray(a) for a in w],
+                      biases=[jnp.asarray(a) for a in b], skips=(2,))
+    pp = PM.params_from_numpy(w, b, (2,), device="cpu")
+    x = rng.randn(300, in_dim).astype(np.float32)
+    ids = rng.randint(0, C, 300).astype(np.int32)
+    calls = []
+    plain = PM.mlp_gemm_reference
+    monkeypatch.setattr(PM, "mlp_gemm_reference",
+                        lambda *a, **k: calls.append(a[3].numel())
+                        or plain(*a, **k))
+    xt, it = torch.as_tensor(x), torch.as_tensor(ids)
+    if route == "one":
+        got = PM.mlp_forward(pp, 2, xt)
+        want = JM.mlp_forward(jp, jnp.int32(2), jnp.asarray(x))
+    elif route == "all":
+        got = PM.mlp_forward_all(pp, it, xt)
+        want = JM.mlp_forward_all(jp, jnp.asarray(ids), jnp.asarray(x))
+    else:
+        got = PM._query_chunked(pp, it, xt, 64)
+        want = JM._query_chunked(jp, jnp.asarray(ids), jnp.asarray(x), 64)
+    assert len(calls) == pp.n_layers == 4
+    # groups a call: one cluster, every cluster, or one chunk each
+    assert set(calls) == {dict(one=1, all=C, chunked=-(-300 // 64) + C)[
+        route]}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
 def test_cluster_ids_equal_on_boundaries():
     """The f32 grid over (y, z), on a lattice through every cell
     boundary and outside the box, through the function and the model."""
